@@ -1,0 +1,50 @@
+"""htool_tpu_torch — the PyTorch / CUDA port of htool_tpu.
+
+Hierarchical matrices and domain-decomposition solvers on an NVIDIA GPU:
+geometric cluster trees, H-matrix compression by batched partial ACA,
+products through a hand-written tiled CUDA kernel (``csrc/``), and
+restarted GMRES / CG with one-level Schwarz preconditioners.  The JAX
+package ``htool_tpu`` is the reference; this package never imports it or
+JAX.  Trees and block plans are built on the host in NumPy; the device sees
+flat, padded bucket tensors.
+"""
+
+from .utils.precision import set_full_precision as _set_full_precision
+
+_set_full_precision()
+
+from .clustering.cluster_tree import ClusterTree, ClusterTreeBuilder, build_cluster_tree
+from .generator import Generator, KernelGenerator, MatrixGenerator
+from .hmatrix.aca import batched_partial_aca
+from .hmatrix.assembly import HMatrixBuilder, assemble_from_plan, build_hmatrix
+from .hmatrix.block_tree import BlockTreePlan, plan_block_tree
+from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
+from .hmatrix.info import hmatrix_info, print_hmatrix_information
+from .hmatrix.linalg import matmat, matmat_user, matvec, matvec_user, to_dense
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ClusterTree",
+    "ClusterTreeBuilder",
+    "build_cluster_tree",
+    "Generator",
+    "KernelGenerator",
+    "MatrixGenerator",
+    "BlockTreePlan",
+    "plan_block_tree",
+    "HMatrix",
+    "DenseBucket",
+    "LowRankBucket",
+    "HMatrixBuilder",
+    "build_hmatrix",
+    "assemble_from_plan",
+    "batched_partial_aca",
+    "matvec",
+    "matvec_user",
+    "matmat",
+    "matmat_user",
+    "to_dense",
+    "hmatrix_info",
+    "print_hmatrix_information",
+]

@@ -1,0 +1,109 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+The sources in ``htool_tpu_torch/csrc/*.cu`` export a plain C interface.
+At first use, :func:`load_library` compiles them with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library under ``kernels/_build/`` and loads
+it with ``ctypes``.  The library's file name carries a hash of the sources
+and flags, so an edited source is rebuilt and a built one is reused.
+Nothing is compiled when the package is imported: CPU tensors never reach
+the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["load_library", "build_info", "check"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parent / "_build"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# filled by the first load: build seconds, library path, ptxas report
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name in ("htool_tiled_matvec_f32", "htool_tiled_matvec_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp,
+                       ci, vp, vp]
+        fn.restype = ci
+    lib.htool_cuda_error_string.argtypes = [ci]
+    lib.htool_cuda_error_string.restype = ctypes.c_char_p
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    so = _BUILD / f"libhtool_kernels_{h.hexdigest()[:16]}.so"
+    log = so.with_suffix(".log")
+    t0 = time.perf_counter()
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        cu = [str(s) for s in srcs if s.suffix == ".cu"]
+        # build into a temporary name and rename, so a concurrent or
+        # interrupted build never leaves a partial library under the final name
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [_nvcc(), *_NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu],
+                capture_output=True, text=True,
+            )
+            log.write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    lib = ctypes.CDLL(str(so))
+    _declare(lib)
+    build_info.update(
+        seconds=time.perf_counter() - t0,
+        library=str(so),
+        ptxas=log.read_text() if log.exists() else "",
+    )
+    return lib
+
+
+def check(code: int) -> None:
+    """Raise if a kernel launch returned a CUDA error code."""
+    if code != 0:
+        msg = load_library().htool_cuda_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} (error {code})")

@@ -1,0 +1,71 @@
+"""The PyTorch port imports without JAX and without the JAX package."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("jax")
+pytest.importorskip("torch")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SLICE = [
+    "htool_tpu_torch",
+    "htool_tpu_torch.utils.precision",
+    "htool_tpu_torch.testing",
+    "htool_tpu_torch.clustering.cluster_tree",
+    "htool_tpu_torch.hmatrix.block_tree",
+    "htool_tpu_torch.generator",
+    "htool_tpu_torch.hmatrix.hmatrix",
+    "htool_tpu_torch.hmatrix.aca",
+    "htool_tpu_torch.hmatrix.assembly",
+    "htool_tpu_torch.hmatrix.info",
+    "htool_tpu_torch.ops.tiled_matvec",
+    "htool_tpu_torch.kernels",
+    "htool_tpu_torch.hmatrix.linalg",
+    "htool_tpu_torch.solvers.krylov",
+    "htool_tpu_torch.solvers.ddm",
+    "htool_tpu_torch.convert",
+]
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import importlib\n"
+        f"for m in {SLICE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'htool_tpu' or m.startswith(('htool_tpu.', 'jax.')))\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert torch.get_float32_matmul_precision() == 'highest'\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_exports_slice_names():
+    import htool_tpu
+    import htool_tpu_torch
+
+    slice_names = {
+        "ClusterTree", "ClusterTreeBuilder", "build_cluster_tree", "Generator",
+        "KernelGenerator", "MatrixGenerator", "BlockTreePlan", "plan_block_tree",
+        "HMatrix", "DenseBucket", "LowRankBucket", "HMatrixBuilder", "build_hmatrix",
+        "assemble_from_plan", "batched_partial_aca", "matvec", "matvec_user", "matmat",
+        "matmat_user", "to_dense", "hmatrix_info", "print_hmatrix_information",
+    }
+    assert slice_names <= set(htool_tpu.__all__)
+    assert slice_names <= set(htool_tpu_torch.__all__)
+    for name in slice_names:
+        assert hasattr(htool_tpu_torch, name), name
