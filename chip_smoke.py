@@ -27,7 +27,21 @@ Phases (each prints one JSON line):
    warm solve, 20 products at k = 1 and at k = 8, a warm assembly and a warm
    Schwarz set-up.  Device busy time is the union of the kernel, memcpy and
    memset intervals of the trace; the idle share is 1 - busy / the window's
-   host wall time, which the profiler itself lengthens.
+   host wall time, which the profiler itself lengthens;
+7. unplanned path — the same points, a tree of 8 partitions, a symmetric
+   (``"S"``, ``"L"``) H-matrix with no tiled plans, ``H @ x`` for op N and T
+   at k = 1 and 8 through the unplanned CUDA kernels, then the 8 partition
+   block rows that the distributed operator gives its devices (N on the
+   global x, stacked; T on each local slice, summed), all checked against
+   generator rows; products timed with the kernels and with their plain
+   versions;
+8. unplanned kernels vs plain — every bucket term of that H-matrix and of
+   one block row, both orientations, k = 1 and 8, f32 and f64, and random
+   buckets of edge shapes (rank 96, 6272×2080 low-rank and 416×1568 dense
+   blocks, k = 2, 3, 5, 11);
+9. compressors — full ACA, SVD and partial ACA with SVD recompression at
+   n = 20,000, each checked against generator rows;
+10. profile — 20 unplanned products at k = 8.
 
 Any failed check raises, so the script exits non-zero.  Only when every
 phase passes does the last line read
@@ -99,7 +113,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000, help="number of points")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=None, help="directory for the per-bucket timing table")
+    ap.add_argument("--compress-n", type=int, default=20_000,
+                    help="number of points of the compressors phase")
+    ap.add_argument("--out", default=None, help="directory for the per-bucket timing tables")
     args = ap.parse_args(argv)
 
     import torch
@@ -112,6 +128,12 @@ def main(argv=None) -> int:
     from htool_tpu_torch.hmatrix import linalg
     from htool_tpu_torch.hmatrix.linalg import matvec, matvec_user, prepare_tiled_matvec
     from htool_tpu_torch.kernels import build_info, load_library
+    from htool_tpu_torch.ops.bucket_matvec import (
+        dense_bucket_matvec,
+        dense_bucket_matvec_reference,
+        lr_bucket_matvec,
+        lr_bucket_matvec_reference,
+    )
     from htool_tpu_torch.ops.tiled_matvec import (
         build_tile_plan,
         tiled_bucket_matvec,
@@ -144,6 +166,7 @@ def main(argv=None) -> int:
     rng = np.random.RandomState(args.seed)
     torch.cuda.reset_peak_memory_stats()
     tiled_bucket_matvec.launches = 0
+    dense_bucket_matvec.launches = lr_bucket_matvec.launches = 0
     matvec.products = 0
 
     pts = create_sphere(n, seed=args.seed)
@@ -193,6 +216,8 @@ def main(argv=None) -> int:
 
     launches = tiled_bucket_matvec.launches
     products = matvec.products
+    require(dense_bucket_matvec.launches == lr_bucket_matvec.launches == 0,
+            "a planned product launched an unplanned kernel")
     buckets = H.dense_buckets + H.lr_buckets
     require(H.symmetry == "N", "the flagship H-matrix is non-symmetric: one term per bucket")
     terms = len(buckets)
@@ -381,13 +406,263 @@ def main(argv=None) -> int:
     for name, fn in windows:
         emit(dict(phase="profile", **profile_window(name, fn)))
 
-    emit({"kernels": [dict(
+    # ---------------- 7. unplanned path: symmetric H-matrix and its block rows ----------------
+    del H, solver, windows, buckets
+    torch.cuda.empty_cache()
+    P8 = 8
+    tree8 = ht.build_cluster_tree(pts, max_leaf_size=256, n_partitions=P8)
+    perm8 = torch.as_tensor(tree8.permutation, device=dev)
+    t0 = time.perf_counter()
+    HS = ht.build_hmatrix(gen, tree8, epsilon=eps, eta=10.0, symmetry="S", UPLO="L")
+    sync()
+    t_asm_sym = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    block_rows = [ht.HMatrixBuilder(epsilon=eps, eta=10.0, symmetry="S", UPLO="L",
+                                    partition_number_for_symmetry=p).build(gen, tree8, target_partition=p)
+                  for p in range(P8)]
+    sync()
+    t_rows = time.perf_counter() - t0
+
+    def n_terms(h):
+        return sum(1 + bool(b.mirror) for b in h.dense_buckets + h.lr_buckets)
+
+    def rel_rows(y_user, xr):
+        """Relative error of y on the 256 sampled rows of A x."""
+        ref = A_rows @ xr.double()
+        return float(torch.linalg.norm(y_user[sub].double() - ref) / torch.linalg.norm(ref))
+
+    unplanned = [HS, *block_rows]
+    require(all(b.plan_t is None and b.plan_s is None
+                for h in unplanned for b in h.dense_buckets + h.lr_buckets), "no tiled plans")
+    require(any(b.mirror for b in HS.dense_buckets + HS.lr_buckets), "mirror buckets in H")
+    require(sum(h.shape[0] for h in block_rows) == n and block_rows[-1].t_root_off > 0,
+            "block rows cover the rows")
+    xs = {k: torch.as_tensor(rng.randn(n, k).astype(np.float32), device=dev) for k in (1, 8)}
+
+    dense_bucket_matvec.launches = lr_bucket_matvec.launches = 0
+    tiled_bucket_matvec.launches = 0
+    matvec.products = 0
+    expected, sym_err, row_err = 0, {}, {}
+    for op in ("N", "T"):
+        for k in (1, 8):
+            p0 = matvec.products
+            y_s = HS @ xs[k] if op == "N" else matvec_user(HS, xs[k], op="T")
+            expected += n_terms(HS) * (matvec.products - p0)
+            require(bool(torch.isfinite(y_s).all()) and tuple(y_s.shape) == (n, k),
+                    f"symmetric H @ x {op} k={k}: shape or non-finite")
+            sym_err[f"{op}/k{k}"] = rel_rows(y_s, xs[k])
+    for k in (1, 8):
+        xc = xs[k][perm8]
+        y_n, y_t = torch.zeros_like(xc), torch.zeros_like(xc)
+        for hp in block_rows:
+            r0, m = hp.t_root_off, hp.shape[0]
+            p0 = matvec.products
+            y_n[r0 : r0 + m] = matvec(hp, xc, op="N")  # N on the global x, stacked
+            y_t += matvec(hp, xc[r0 : r0 + m], op="T")  # T on the local slice, summed
+            expected += n_terms(hp) * (matvec.products - p0)
+        for op, yc in (("N", y_n), ("T", y_t)):
+            y_u = torch.empty_like(yc)
+            y_u[perm8] = yc
+            row_err[f"{op}/k{k}"] = rel_rows(y_u, xs[k])
+    sync()
+    dense_launches, lr_launches = dense_bucket_matvec.launches, lr_bucket_matvec.launches
+    unplanned_products, tiled_in_unplanned = matvec.products, tiled_bucket_matvec.launches
+
+    # products in cluster numbering at k = 1 and 8, kernels and plain versions
+    def time_products(h, xr, reps=iters):
+        y = matvec(h, xr)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            matvec(h, xr)
+        sync()
+        return (time.perf_counter() - t0) / reps, y
+
+    prod_ms, prod_vs_plain = {}, {}
+    for k in (1, 8):
+        t_k, y_k = time_products(HS, xs[k])
+        linalg.dense_bucket_matvec = dense_bucket_matvec_reference
+        linalg.lr_bucket_matvec = lr_bucket_matvec_reference
+        try:
+            t_p, y_p = time_products(HS, xs[k])
+        finally:
+            linalg.dense_bucket_matvec = dense_bucket_matvec
+            linalg.lr_bucket_matvec = lr_bucket_matvec
+        prod_ms[f"k{k}"] = 1e3 * t_k
+        prod_ms[f"k{k}_plain"] = 1e3 * t_p
+        prod_vs_plain[f"k{k}"] = float(torch.linalg.norm(y_k - y_p) / torch.linalg.norm(y_p))
+    hs_buckets = HS.dense_buckets + HS.lr_buckets
+    # bytes a product must read: every term streams its bucket's blocks once
+    bytes_per_product = sum(
+        (1 + bool(b.mirror)) * 4 * (b.data.numel() if isinstance(b, ht.DenseBucket)
+                                    else b.U.numel() + b.V.numel()) for b in hs_buckets)
+    info_s = ht.hmatrix_info(HS)
+    emit(dict(
+        phase="unplanned_path", n=n, partitions=P8, symmetry="S", UPLO="L",
+        assembly_s=t_asm_sym, block_rows_assembly_s=t_rows,
+        compression_ratio=info_s["compression_ratio"], rank_max=info_s["rank_max"],
+        n_dense_buckets=len(HS.dense_buckets), n_lr_buckets=len(HS.lr_buckets),
+        terms_per_product=n_terms(HS), block_row_terms=[n_terms(h) for h in block_rows],
+        block_row_sizes=[h.shape[0] for h in block_rows],
+        rel_error=sym_err, block_rows_rel_error=row_err,
+        products=unplanned_products, dense_launches=dense_launches, lr_launches=lr_launches,
+        expected_launches=expected, tiled_launches=tiled_in_unplanned,
+        product_ms=prod_ms, kernel_vs_plain_rel=prod_vs_plain,
+        bytes_per_product=bytes_per_product, floor_ms_at_3_35_TBps=bytes_per_product / 3.35e9,
+    ))
+    require(max(sym_err.values()) < eps, f"symmetric H @ x rel error {sym_err}")
+    require(max(row_err.values()) < eps, f"block rows rel error {row_err}")
+    require(tiled_in_unplanned == 0, "an unplanned product launched the tiled kernel")
+    require(dense_launches > 0 and lr_launches > 0 and dense_launches + lr_launches == expected,
+            f"unplanned launches {dense_launches} + {lr_launches} != terms x products {expected}")
+    require(max(prod_vs_plain.values()) < 1e-5, f"product kernel vs plain {prod_vs_plain}")
+
+    # ---------------- 8. unplanned kernels vs plain, per bucket term ----------------
+    def terms_of(h, op):
+        """Each bucket term of op(h) with the wrapper arguments matvec gives it."""
+        m_pad, n_pad = (h.shape[0] + linalg._pad_in_of(h), h.shape[1] + linalg._pad_in_of(h))
+        in_len, out_len = (n_pad, m_pad) if op == "N" else (m_pad, n_pad)
+        for bi, bucket in enumerate(h.dense_buckets + h.lr_buckets):
+            for in_side, out_side, mode, is_mirror in linalg._bucket_terms(bucket, op, h.symmetry):
+                in_off, out_off, in_root, out_root = linalg._term_offsets(
+                    h, bucket, in_side, out_side, is_mirror)
+                yield bi, bucket, in_len, dict(
+                    in_off=in_off, out_off=out_off, trans=mode in ("T", "C"), out_len=out_len,
+                    in_root=in_root, out_root=out_root)
+
+    def run_term(fn, blocks, xp, kw):
+        return fn(*blocks, kw["in_off"], kw["out_off"], xp, kw["trans"], kw["out_len"],
+                  in_root=kw["in_root"], out_root=kw["out_root"])
+
+    def compare_term(kernel, plain, blocks, xp, kw, what):
+        yk = run_term(kernel, blocks, xp, kw)
+        yr = run_term(plain, blocks, xp, kw)
+        sync()
+        require(bool(torch.isfinite(yk).all()), f"non-finite kernel output {what}")
+        r = float(torch.linalg.norm(yk - yr) / torch.linalg.norm(yr).clamp_min(1e-300))
+        require(r <= tol_rel[xp.dtype], f"{what}: rel {r:.3e}")
+        return r, float((yk - yr).abs().max())
+
+    def timed_term(fn, blocks, xp, kw, reps=3):
+        run_term(fn, blocks, xp, kw)
+        ev0.record()
+        for _ in range(reps):
+            run_term(fn, blocks, xp, kw)
+        ev1.record()
+        sync()
+        return ev0.elapsed_time(ev1) / reps
+
+    u_worst, u_abs = {}, {"dense": 0.0, "lr": 0.0}
+    u_total = {(bkind, k, w): 0.0 for bkind in ("dense", "lr") for k in (1, 8)
+               for w in ("kernel", "plain")}
+    u_rows = []
+    row_p = block_rows[P8 // 2]
+    for name, h in (("H", HS), (f"block_row_{P8 // 2}", row_p)):
+        for op in ("N", "T"):
+            for bi, bucket, in_len, kw in terms_of(h, op):
+                is_dense = isinstance(bucket, ht.DenseBucket)
+                bkind = "dense" if is_dense else "lr"
+                kernel, plain = ((dense_bucket_matvec, dense_bucket_matvec_reference) if is_dense
+                                 else (lr_bucket_matvec, lr_bucket_matvec_reference))
+                for dtype in (torch.float32, torch.float64):
+                    blocks = [bucket.data.to(dtype)] if is_dense else [bucket.U.to(dtype),
+                                                                       bucket.V.to(dtype)]
+                    for k in (1, 8):
+                        xp = torch.randn((in_len, k), dtype=dtype, device=dev)
+                        key = f"{dtype}/trans{int(kw['trans'])}/k{k}/{bkind}"
+                        r, a = compare_term(kernel, plain, blocks, xp, kw,
+                                            f"{name} op {op} bucket {bi} {key}")
+                        u_worst[key] = max(u_worst.get(key, 0.0), r)
+                        if dtype == torch.float32:
+                            u_abs[bkind] = max(u_abs[bkind], a)
+                            if name == "H" and op == "N":  # the terms of H @ x
+                                tk = timed_term(kernel, blocks, xp, kw)
+                                tp = timed_term(plain, blocks, xp, kw)
+                                u_total[(bkind, k, "kernel")] += tk
+                                u_total[(bkind, k, "plain")] += tp
+                                u_rows.append(dict(
+                                    bucket=bi, kind=bkind, n_blocks=bucket.n_blocks,
+                                    block_shape=bucket.block_shape, mirror=bool(bucket.mirror),
+                                    rank=None if is_dense else bucket.rank_padded,
+                                    trans=bool(kw["trans"]), k=k, kernel_ms=tk, plain_ms=tp))
+                    del blocks
+    # shapes past the main path's, with root offsets on both sides
+    u_edge = {}
+    for bkind, (bm, bn, r, nb) in (("dense", (416, 1568, 0, 96)), ("lr", (6272, 2080, 96, 48))):
+        kernel, plain = ((dense_bucket_matvec, dense_bucket_matvec_reference) if bkind == "dense"
+                         else (lr_bucket_matvec, lr_bucket_matvec_reference))
+        for dtype in (torch.float32, torch.float64):
+            blocks = ([randn(nb, bm, bn, dtype=dtype)] if bkind == "dense"
+                      else [randn(nb, bm, r, dtype=dtype), randn(nb, r, bn, dtype=dtype)])
+            for trans in (False, True):
+                in_w, out_w = (bm, bn) if trans else (bn, bm)
+                root = 777
+                kw = dict(in_off=root + torch.randint(0, L - in_w, (nb,), device=dev, generator=gen_r),
+                          out_off=root + torch.randint(0, L - out_w, (nb,), device=dev, generator=gen_r),
+                          trans=trans, out_len=L, in_root=root, out_root=root)
+                for k in (2, 3, 5, 11):
+                    key = f"{dtype}/trans{int(trans)}/k{k}/{bkind}"
+                    u_edge[key] = compare_term(kernel, plain, blocks, randn(L, k, dtype=dtype), kw,
+                                               f"edge {key} {bm}x{bn} r={r}")[0]
+            del blocks
+    emit(dict(phase="unplanned_kernel_vs_plain", tolerance_rel=dict(float32=1e-5, float64=1e-12),
+              worst_rel=u_worst, max_abs_err_f32=u_abs,
+              terms_k1_ms={kd: u_total[(kd, 1, "kernel")] for kd in ("dense", "lr")},
+              terms_k1_plain_ms={kd: u_total[(kd, 1, "plain")] for kd in ("dense", "lr")},
+              terms_k8_ms={kd: u_total[(kd, 8, "kernel")] for kd in ("dense", "lr")},
+              terms_k8_plain_ms={kd: u_total[(kd, 8, "plain")] for kd in ("dense", "lr")},
+              edge_shapes=dict(dense=[416, 1568], lr=[6272, 2080, 96]), edge_worst_rel=u_edge))
+    if args.out:
+        with open(os.path.join(args.out, "chip_smoke_unplanned_terms.json"), "w") as f:
+            json.dump(dict(nvidia_smi=smi, n=n, rows=u_rows), f, indent=1)
+
+    # ---------------- 9. compressors ----------------
+    nc = args.compress_n
+    pts_c = create_sphere(nc, seed=args.seed)
+    pts_cd = torch.as_tensor(pts_c.astype(np.float32), device=dev)
+    gen_c = ht.KernelGenerator(laplace_kernel_symmetric, pts_cd, pts_cd)
+    tree_c = ht.build_cluster_tree(pts_c, max_leaf_size=256)
+    sub_c = torch.as_tensor(rng.choice(nc, 256, replace=False), device=dev)
+    A_c = gen_c.block(sub_c, torch.arange(nc, device=dev)).double()
+    x_c = torch.as_tensor(rng.randn(nc, 2).astype(np.float32), device=dev)
+    for compressor, recompress in (("full_aca", False), ("svd", False), ("partial_aca", True)):
+        t0 = time.perf_counter()
+        Hc = ht.build_hmatrix(gen_c, tree_c, epsilon=eps, eta=10.0, compressor=compressor,
+                              recompress=recompress)
+        sync()
+        t_c = time.perf_counter() - t0
+        ref = A_c @ x_c.double()
+        err = float(torch.linalg.norm((Hc @ x_c)[sub_c].double() - ref) / torch.linalg.norm(ref))
+        info_c = ht.hmatrix_info(Hc)
+        emit(dict(phase="compressors", n=nc, compressor=compressor, recompress=recompress,
+                  assembly_s=t_c, rel_error=err, compression_ratio=info_c["compression_ratio"],
+                  rank_mean=info_c["rank_mean"], rank_max=info_c["rank_max"],
+                  n_low_rank_blocks=info_c["n_low_rank_blocks"],
+                  n_false_positive=info_c["n_false_positive"]))
+        require(err < eps, f"{compressor} recompress={recompress}: rel error {err:.3e}")
+        require(info_c["n_low_rank_blocks"] > 0, f"{compressor}: no low-rank blocks")
+        del Hc
+
+    # ---------------- 10. profile of the unplanned products ----------------
+    x8c = xs[8][perm8]
+    emit(dict(phase="profile", **profile_window(
+        "unplanned_matvec_k8_x20", lambda: [matvec(HS, x8c) for _ in range(iters)])))
+
+    kernel_rows = [dict(
         name="tiled_bucket_matvec", route="cuda",
         source="htool_tpu_torch/csrc/tiled_matvec.cu",
         replaces="htool_tpu/ops/tiled_matvec.py:585",
         launches=launches, max_abs_err=max_abs_err,
         ms=total[(8, "kernel")], plain_ms=total[(8, "plain")],
-    )]})
+    )]
+    for bkind, name, line, n_launch in (("dense", "dense_bucket_matvec", 179, dense_launches),
+                                       ("lr", "lr_bucket_matvec", 258, lr_launches)):
+        kernel_rows.append(dict(
+            name=name, route="cuda", source="htool_tpu_torch/csrc/bucket_matvec.cu",
+            replaces=f"htool_tpu/ops/bucket_matvec.py:{line}", launches=n_launch,
+            max_abs_err=u_abs[bkind], ms=u_total[(bkind, 8, "kernel")],
+            plain_ms=u_total[(bkind, 8, "plain")]))
+    emit({"kernels": kernel_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

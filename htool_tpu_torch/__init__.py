@@ -1,8 +1,9 @@
 """htool_tpu_torch — the PyTorch / CUDA port of htool_tpu.
 
 Hierarchical matrices and domain-decomposition solvers on an NVIDIA GPU:
-geometric cluster trees, H-matrix compression by batched partial ACA,
-products through a hand-written tiled CUDA kernel (``csrc/``), and
+geometric cluster trees, H-matrix compression (batched partial or full
+ACA, truncated SVD, SVD recompression), products through hand-written
+CUDA kernels (``csrc/``: tiled plans and unplanned buckets), and
 restarted GMRES / CG with one-level Schwarz preconditioners.  The JAX
 package ``htool_tpu`` is the reference; this package never imports it or
 JAX.  Trees and block plans are built on the host in NumPy; the device sees
@@ -21,6 +22,7 @@ from .hmatrix.block_tree import BlockTreePlan, plan_block_tree
 from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
 from .hmatrix.info import hmatrix_info, print_hmatrix_information
 from .hmatrix.linalg import matmat, matmat_user, matvec, matvec_user, to_dense
+from .hmatrix.output import load_hmatrix, save_hmatrix
 
 __version__ = "0.1.0"
 
@@ -47,4 +49,6 @@ __all__ = [
     "to_dense",
     "hmatrix_info",
     "print_hmatrix_information",
+    "save_hmatrix",
+    "load_hmatrix",
 ]

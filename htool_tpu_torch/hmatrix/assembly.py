@@ -23,6 +23,7 @@ import torch
 from ..clustering.cluster_tree import ClusterTree
 from ..generator import Generator, TransposedGenerator
 from .aca import batched_partial_aca
+from .compressors import batched_full_aca, batched_recompress, batched_svd_compress
 from .block_tree import BlockTreePlan, plan_block_tree
 from .hmatrix import DenseBucket, HMatrix, LowRankBucket
 
@@ -71,12 +72,20 @@ def _block_indices(perm: np.ndarray, offs: np.ndarray, sizes: np.ndarray, pad: i
     return perm[offs[:, None] + rel]
 
 
-_COMPRESSORS = ("partial_aca", "sym_partial_aca")
+_COMPRESSORS = {
+    "partial_aca": batched_partial_aca,
+    "sym_partial_aca": batched_partial_aca,  # orientation handled by the caller
+    "full_aca": batched_full_aca,
+    "svd": batched_svd_compress,
+}
+_PARTIAL = ("partial_aca", "sym_partial_aca")
+# compressors that assemble whole blocks before compressing them
+_ASSEMBLING = (batched_full_aca, batched_svd_compress)
 
 
 def _get_compressor(name):
-    """Resolve a compressor: ``partial_aca``/``sym_partial_aca``, or a
-    user-supplied CALLABLE with the ``batched_partial_aca`` signature — the
+    """Resolve a compressor: a registry name, or a user-supplied CALLABLE
+    with the ``batched_partial_aca`` signature — the
     ``VirtualLowRankGenerator`` hook (virtual_lrmat_generator.hpp:11-56)::
 
         compressor(generator, rows, cols, t_sizes, s_sizes, epsilon, rmax,
@@ -85,14 +94,12 @@ def _get_compressor(name):
     """
     if callable(name):
         return name
-    if name in _COMPRESSORS:
-        return batched_partial_aca  # orientation handled by the caller
-    if name in ("full_aca", "svd"):
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet (ROADMAP Queue 1 item 8, "
-            "hmatrix/compressors.py)"
-        )
-    raise ValueError(f"unknown compressor {name!r}; choose from {list(_COMPRESSORS)}")
+    try:
+        return _COMPRESSORS[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown compressor {name!r}; choose from {sorted(_COMPRESSORS)}"
+        ) from None
 
 
 # ---- memory-bounded escalating compression -------------------------------
@@ -122,11 +129,14 @@ def _compress_escalating(
     ``_ACA_CHUNK_BUDGET``.
 
     Returns (U [nb, m, w], V [nb, w, n], rank [nb] np, failed [nb] np) with
-    ``w`` the smallest pow2 covering the realized ranks."""
+    ``w`` the smallest pow2 covering the realized ranks.  A compressor that
+    assembles whole blocks (full ACA, SVD) also counts the block and its
+    temporaries against the budget; chunking changes no result."""
     device = generator.device
     nb, bm = rows.shape
     bn = cols.shape[1]
     itemsize = torch.empty((), dtype=generator.dtype).element_size()
+    assembled = bm * bn * itemsize * 4 if compress in _ASSEMBLING else 0
 
     if reqrank > 0:
         caps = [rmax]
@@ -145,7 +155,7 @@ def _compress_escalating(
         idx = np.nonzero(pending)[0]
         if idx.size == 0:
             break
-        per_block = (bm + bn) * cap * itemsize * 3  # U + V + transients
+        per_block = (bm + bn) * cap * itemsize * 3 + assembled  # U + V + transients
         chunk = max(1, min(int(_ACA_CHUNK_BUDGET // per_block), idx.size))
         for lo in range(0, idx.size, chunk):
             sel = idx[lo : lo + chunk]
@@ -192,14 +202,14 @@ def assemble_from_plan(
     ``compressor``: "partial_aca" (default), "sym_partial_aca" (partial ACA
     with the offset-oriented pivot walk of the reference's default
     sympartialACA, ``sympartialACA.hpp:48-63``: blocks with
-    ``t_off < s_off`` are compressed on the transposed block), or any
-    CALLABLE with the ``batched_partial_aca`` signature.  The full-ACA and
-    SVD compressors and ``recompress=True`` are not ported yet."""
-    if recompress:
-        raise NotImplementedError(
-            "recompress=True is not ported yet (ROADMAP Queue 1 item 8, "
-            "batched_recompress)"
-        )
+    ``t_off < s_off`` are compressed on the transposed block), "full_aca",
+    "svd" (:mod:`.compressors`), or any CALLABLE with the
+    ``batched_partial_aca`` signature.
+
+    ``recompress=True`` applies batched SVD recompression to every
+    compressed block right after compression, with any compressor — the
+    ``RecompressedLowRankGenerator`` decorator
+    (recompressed_low_rank_generator.hpp:19-25)."""
     compress = _get_compressor(compressor)
     tt, st = plan.target_tree, plan.source_tree
     perm_t, perm_s = tt.permutation, st.permutation
@@ -251,7 +261,7 @@ def assemble_from_plan(
         # estimator-based compressors stop at a tighter internal tolerance
         # so the GLOBAL error honors the user's epsilon
         eps_stop = plan.epsilon * (
-            _ACA_STOP_FACTOR if compressor in _COMPRESSORS else 1.0
+            _ACA_STOP_FACTOR if compressor in _PARTIAL else 1.0
         )
         if swap:
             # transposed walk (sympartialACA orientation): compress Aᵀ, then
@@ -267,6 +277,10 @@ def assemble_from_plan(
                 compress, generator, rows, cols, t_szs, s_szs, eps_stop,
                 rmax, reqrank,
             )
+
+        if recompress:
+            U, V, new_rank = batched_recompress(U, V, dev(rank), plan.epsilon)
+            rank = np.where(failed, 0, new_rank.cpu().numpy()).astype(np.int64)
 
         # --- successful blocks: re-pack into tight storage buckets ---
         # storage classes use mult32 dims and one pow2 rank per class; rows,

@@ -2,12 +2,14 @@
 
 Port of ``htool_tpu/hmatrix/linalg.py`` (the reference's leaf-loop
 products, ``hmatrix/linalg/add_hmatrix_vector_product.hpp:17-206``): per
-bucket term, either the tiled Hopper kernel over a prepared plan
-(:mod:`..ops.tiled_matvec`), or a batched gather → ``bmm`` →
-``index_add_`` (the port of the JAX package's XLA path).  Padded
-rows/cols are exact zeros, so no masking is needed.  Symmetric/hermitian
-mirrored contributions (``add_hmatrix_vector_product.hpp:56-104``) are
-separate bucket terms with the transposed/conjugated operand.
+bucket term, the tiled Hopper kernel over a prepared plan
+(:mod:`..ops.tiled_matvec`), or, without a plan, the unplanned Hopper
+kernels (:mod:`..ops.bucket_matvec`).  Complex products take a batched
+gather → ``bmm`` → ``index_add_`` (the port of the JAX package's XLA
+path).  Padded rows/cols are exact zeros, so no masking is needed.
+Symmetric/hermitian mirrored contributions
+(``add_hmatrix_vector_product.hpp:56-104``) are separate bucket terms with
+the transposed/conjugated operand.
 
 All core routines work in **cluster numbering** on 2-D ``[n, nrhs]``
 tensors; user-numbering wrappers apply the permutations as gathers
@@ -21,6 +23,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.bucket_matvec import (
+    dense_bucket_matvec,
+    dense_bucket_matvec_reference,
+    lr_bucket_matvec,
+    lr_bucket_matvec_reference,
+)
 from ..ops.tiled_matvec import build_tile_plan, tiled_bucket_matvec
 from .hmatrix import DenseBucket, HMatrix
 
@@ -32,6 +40,7 @@ __all__ = [
     "prepare_tiled_matvec",
     "to_dense",
     "copy_diagonal",
+    "copy_diagonal_user",
 ]
 
 
@@ -61,32 +70,6 @@ def prepare_tiled_matvec(h: HMatrix, tile_rows: Optional[int] = None) -> HMatrix
         bucket.plan_t = build_tile_plan(bucket, "t", m + pad_in, tile_rows)
         bucket.plan_s = build_tile_plan(bucket, "s", n + pad_in, tile_rows)
     return h
-
-
-def _apply_dense(data, xg, mode):
-    """data [nb, m, n] applied to xg [nb, ·, k] under mode."""
-    if mode == "N":
-        return data @ xg
-    if mode == "T":
-        return data.transpose(1, 2) @ xg
-    if mode == "C":
-        return data.conj().transpose(1, 2) @ xg
-    if mode == "conj":  # conj(A) · x
-        return data.conj() @ xg
-    raise ValueError(mode)
-
-
-def _apply_lr(U, V, xg, mode):
-    """U [nb, m, r], V [nb, r, n] applied to xg under mode."""
-    if mode == "N":
-        return U @ (V @ xg)
-    if mode == "T":
-        return V.transpose(1, 2) @ (U.transpose(1, 2) @ xg)
-    if mode == "C":
-        return V.conj().transpose(1, 2) @ (U.conj().transpose(1, 2) @ xg)
-    if mode == "conj":
-        return U.conj() @ (V.conj() @ xg)
-    raise ValueError(mode)
 
 
 def _bucket_terms(bucket, op: str, symmetry: str):
@@ -127,6 +110,21 @@ def _bucket_terms(bucket, op: str, symmetry: str):
     return terms
 
 
+def _term_offsets(h: HMatrix, bucket, in_side: str, out_side: str, is_mirror: bool):
+    """(in_off, out_off, in_root, out_root) of one bucket term: the bucket's
+    offsets on each side, and the root offset to subtract from them.  The
+    "row/local" side, localized by ``t_root_off``, is 't' for stored terms
+    and 's' for mirror terms (see :func:`_bucket_terms`)."""
+    local_side = "s" if is_mirror else "t"
+
+    def side(s):
+        return (bucket.t_off if s == "t" else bucket.s_off,
+                h.t_root_off if s == local_side else 0)
+
+    (in_off, in_root), (out_off, out_root) = side(in_side), side(out_side)
+    return in_off, out_off, in_root, out_root
+
+
 def matvec(h: HMatrix, x, op: str = "N"):
     """Product in cluster numbering: ``op(H) @ x``.
 
@@ -136,12 +134,13 @@ def matvec(h: HMatrix, x, op: str = "N"):
     GLOBAL-size output (the caller reduces across partitions).
 
     A bucket term with a plan runs the tiled kernel
-    (:func:`..ops.tiled_matvec.tiled_bucket_matvec`).  When the product's
+    (:func:`..ops.tiled_matvec.tiled_bucket_matvec`); a real term without
+    one runs the unplanned kernels (:func:`..ops.bucket_matvec.dense_bucket_matvec`,
+    :func:`..ops.bucket_matvec.lr_bucket_matvec`).  When the product's
     dtype is wider than the H-matrix's (a float64 input against float32
-    blocks), the kernel runs on the blocks cast to the product's dtype, as
-    the gather path casts them.  Only terms without a plan, and complex
-    products, take the gather → ``bmm`` → ``index_add_`` path.  Each call
-    adds one to ``matvec.products``.
+    blocks), the kernels run on the blocks cast to the product's dtype.
+    Complex products take the gather → ``bmm`` → ``index_add_`` path.  Each
+    call adds one to ``matvec.products``.
     """
     x = torch.as_tensor(x, device=h.device)
     squeeze = x.ndim == 1
@@ -160,7 +159,6 @@ def matvec(h: HMatrix, x, op: str = "N"):
 
     for bucket in h.dense_buckets + h.lr_buckets:
         is_dense = isinstance(bucket, DenseBucket)
-        bm, bn = bucket.block_shape
         for in_side, out_side, mode, is_mirror in _bucket_terms(bucket, op, h.symmetry):
             plan = bucket.plan_t if out_side == "t" else bucket.plan_s
             if plan is not None and not dtype.is_complex:
@@ -175,25 +173,21 @@ def matvec(h: HMatrix, x, op: str = "N"):
                 tiled_bucket_matvec(plan, x_pad, out=y_pad)
                 continue
 
-            # the "row/local" side (localized by t_root_off) is 't' for
-            # stored terms and 's' for mirror terms (see _bucket_terms)
-            local_side = "s" if is_mirror else "t"
-
-            def off_of(side):
-                base = bucket.t_off if side == "t" else bucket.s_off
-                return base - h.t_root_off if side == local_side else base
-
-            in_w = bm if in_side == "t" else bn
-            out_w = bm if out_side == "t" else bn
-            ar_in = torch.arange(in_w, device=x.device)
-            ar_out = torch.arange(out_w, device=x.device)
-            xg = x_pad[off_of(in_side)[:, None] + ar_in]  # [nb, in_w, k]
-            if is_dense:
-                yb = _apply_dense(bucket.data.to(dtype), xg, mode)
+            in_off, out_off, in_root, out_root = _term_offsets(h, bucket, in_side, out_side,
+                                                               is_mirror)
+            offs = (in_off, out_off)
+            kw = dict(in_root=in_root, out_root=out_root, out=y_pad)
+            trans = mode in ("T", "C")  # real dtypes: 'C' is 'T', 'conj' is 'N'
+            if dtype.is_complex:
+                kw["conj"] = mode in ("C", "conj")
+                run_dense, run_lr = dense_bucket_matvec_reference, lr_bucket_matvec_reference
             else:
-                yb = _apply_lr(bucket.U.to(dtype), bucket.V.to(dtype), xg, mode)
-            idx = (off_of(out_side)[:, None] + ar_out).reshape(-1)
-            y_pad.index_add_(0, idx, yb.reshape(-1, k))
+                run_dense, run_lr = dense_bucket_matvec, lr_bucket_matvec
+            if is_dense:
+                run_dense(bucket.data.to(dtype), *offs, x_pad, trans, y_pad.shape[0], **kw)
+            else:
+                run_lr(bucket.U.to(dtype), bucket.V.to(dtype), *offs, x_pad, trans,
+                       y_pad.shape[0], **kw)
 
     matvec.products += 1
     y = y_pad[:out_len]
@@ -256,6 +250,17 @@ def copy_diagonal(h: HMatrix):
         idx = torch.where(on_diag, rows_loc, m_loc)
         out.index_add_(0, idx.reshape(-1), torch.where(on_diag, vals, 0).reshape(-1))
     return out[:-1]
+
+
+def copy_diagonal_user(h: HMatrix):
+    """Diagonal in USER numbering (``copy_diagonal_in_user_numbering``,
+    hmatrix.hpp:434).  Global square H-matrices only."""
+    if h.t_root_off != 0 or h.shape[0] != h.shape[1]:
+        raise ValueError("user-numbering diagonal requires a global square H-matrix")
+    d = copy_diagonal(h)
+    out = torch.zeros_like(d)
+    out[h.perm_t] = d
+    return out
 
 
 def to_dense(h: HMatrix, user_numbering: bool = True) -> np.ndarray:

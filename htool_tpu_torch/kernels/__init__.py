@@ -2,8 +2,9 @@
 
 The sources in ``htool_tpu_torch/csrc/*.cu`` export a plain C interface.
 At first use, :func:`load_library` compiles them with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library under ``kernels/_build/`` and loads
-it with ``ctypes``.  The library's file name carries a hash of the sources
+(``sm_90a``), one ``nvcc`` process per source, all started together, links
+the objects into one shared library under ``kernels/_build/`` and loads it
+with ``ctypes``.  The library's file name carries a hash of the sources
 and flags, so an edited source is rebuilt and a built one is reused.
 Nothing is compiled when the package is imported: CPU tensors never reach
 the kernels.
@@ -27,7 +28,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # filled by the first load: build seconds, library path, ptxas report
@@ -52,12 +53,20 @@ def _sources() -> list[Path]:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in ("htool_tiled_matvec_f32", "htool_tiled_matvec_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp,
-                       ci, vp, vp]
-        fn.restype = ci
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    signatures = {
+        "htool_tiled_matvec": [ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci,
+                               vp, ci, vp, vp],
+        "htool_dense_bucket_matvec": [ci, vp, ci, ci, ci, vp, vp, ll, ll, vp, ll,
+                                      ci, vp, ll, vp],
+        "htool_lr_bucket_matvec": [ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp,
+                                   ll, ci, vp, ll, vp],
+    }
+    for base, argtypes in signatures.items():
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, base + suffix)
+            fn.argtypes = argtypes
+            fn.restype = ci
     lib.htool_cuda_error_string.argtypes = [ci]
     lib.htool_cuda_error_string.restype = ctypes.c_char_p
 
@@ -75,23 +84,29 @@ def load_library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
-        cu = [str(s) for s in srcs if s.suffix == ".cu"]
-        # build into a temporary name and rename, so a concurrent or
+        # build in a temporary directory and rename, so a concurrent or
         # interrupted build never leaves a partial library under the final name
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu],
-                capture_output=True, text=True,
-            )
-            log.write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
+            nvcc = _nvcc()
+            objs, procs = [], []
+            for src in (s for s in srcs if s.suffix == ".cu"):
+                objs.append(os.path.join(tmp, src.stem + ".o"))
+                procs.append(subprocess.Popen(
+                    [nvcc, *_NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", objs[-1], str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                ))
+            text = "".join(p.communicate()[0] for p in procs)
+            ok = all(p.returncode == 0 for p in procs)
+            if ok:
+                lib_tmp = os.path.join(tmp, so.name)
+                link = subprocess.run([nvcc, "-shared", "-o", lib_tmp, *objs],
+                                      capture_output=True, text=True)
+                text += link.stdout + link.stderr
+                ok = link.returncode == 0
+            log.write_text(text)
+            if not ok:
+                raise RuntimeError(f"nvcc failed:\n{text}")
+            os.replace(lib_tmp, so)
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     build_info.update(

@@ -1,5 +1,5 @@
-from . import geometry, kernels
-from .geometry import create_sphere
+from . import geometry, kernels, problems
+from .geometry import create_disk, create_random_points, create_rotated_ellipse, create_sphere
 from .kernels import (
     helmholtz_kernel,
     laplace_kernel,
@@ -8,3 +8,4 @@ from .kernels import (
     laplace_kernel_hermitian,
     laplace_kernel_symmetric,
 )
+from .problems import grid_laplacian

@@ -135,12 +135,14 @@ def test_build_hmatrix_parity(symmetry, UPLO, compressor):
 
 
 def test_unported_options_raise():
+    """An unknown compressor raises; the SVD compressor and recompression,
+    which raised before they were ported, now build under ε."""
     pts = create_sphere(200)
     tree = ht.ClusterTreeBuilder(max_leaf_size=32).build(pts)
     gen = ht.KernelGenerator(kt.laplace_kernel_symmetric, pts, pts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ht.build_hmatrix(gen, tree, epsilon=1e-3, compressor="svd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ht.build_hmatrix(gen, tree, epsilon=1e-3, recompress=True)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown compressor"):
         ht.build_hmatrix(gen, tree, epsilon=1e-3, compressor="nope")
+    A = gen.to_dense().numpy()
+    for kw in (dict(compressor="svd"), dict(recompress=True)):
+        H = ht.build_hmatrix(gen, tree, epsilon=1e-3, **kw)
+        assert np.linalg.norm(H.to_dense() - A) / np.linalg.norm(A) < 1e-3

@@ -28,6 +28,13 @@ SLICE = [
     "htool_tpu_torch.solvers.krylov",
     "htool_tpu_torch.solvers.ddm",
     "htool_tpu_torch.convert",
+    "htool_tpu_torch.ops.bucket_matvec",
+    "htool_tpu_torch.hmatrix.compressors",
+    "htool_tpu_torch.hmatrix.lr_linalg",
+    "htool_tpu_torch.hmatrix.output",
+    "htool_tpu_torch.utils.logger",
+    "htool_tpu_torch.utils.options",
+    "htool_tpu_torch.testing.problems",
 ]
 
 
@@ -64,8 +71,29 @@ def test_port_exports_slice_names():
         "HMatrix", "DenseBucket", "LowRankBucket", "HMatrixBuilder", "build_hmatrix",
         "assemble_from_plan", "batched_partial_aca", "matvec", "matvec_user", "matmat",
         "matmat_user", "to_dense", "hmatrix_info", "print_hmatrix_information",
+        "save_hmatrix", "load_hmatrix",
     }
     assert slice_names <= set(htool_tpu.__all__)
     assert slice_names <= set(htool_tpu_torch.__all__)
     for name in slice_names:
         assert hasattr(htool_tpu_torch, name), name
+    # the subpackages' surface of the second slice
+    import htool_tpu.hmatrix as hj
+    import htool_tpu.testing as tj
+    import htool_tpu.utils as uj
+    import htool_tpu_torch.hmatrix as ht
+    import htool_tpu_torch.testing as tt
+    import htool_tpu_torch.utils as ut
+
+    for mj, mt, names in (
+        (hj, ht, ["copy_diagonal_user", "LowRank", "lrmat_from_dense", "lrmat_vector_product",
+                  "lrmat_matrix_product", "matrix_lrmat_product", "lrmat_lrmat_product",
+                  "add_lrmat_lrmat", "matrix_hmatrix_product", "hmatrix_lrmat_product",
+                  "lrmat_hmatrix_product", "scale_lrmat", "batched_full_aca",
+                  "batched_svd_compress", "batched_recompress", "svd_truncation_rank"]),
+        (tj, tt, ["create_disk", "create_rotated_ellipse", "create_random_points",
+                  "grid_laplacian"]),
+        (uj, ut, ["Logger", "LogLevel", "logger", "SolverOptions"]),
+    ):
+        for name in names:
+            assert hasattr(mj, name) and hasattr(mt, name), name
