@@ -4,7 +4,8 @@ Hierarchical matrices and domain-decomposition solvers on an NVIDIA GPU:
 geometric cluster trees, H-matrix compression (batched partial or full
 ACA, truncated SVD, SVD recompression), products through hand-written
 CUDA kernels (``csrc/``: tiled plans and unplanned buckets), and
-restarted GMRES / CG with one-level Schwarz preconditioners.  The JAX
+restarted GMRES / block GMRES / CG with one-level Schwarz preconditioners,
+for real and complex operators.  The JAX
 package ``htool_tpu`` is the reference; this package never imports it or
 JAX.  Trees and block plans are built on the host in NumPy; the device sees
 flat, padded bucket tensors.
@@ -17,7 +18,12 @@ _set_full_precision()
 from .clustering.cluster_tree import ClusterTree, ClusterTreeBuilder, build_cluster_tree
 from .generator import Generator, KernelGenerator, MatrixGenerator
 from .hmatrix.aca import batched_partial_aca
-from .hmatrix.assembly import HMatrixBuilder, assemble_from_plan, build_hmatrix
+from .hmatrix.assembly import (
+    HMatrixBuilder,
+    assemble_from_plan,
+    build_hmatrix,
+    hmatrix_from_dense,
+)
 from .hmatrix.block_tree import BlockTreePlan, plan_block_tree
 from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
 from .hmatrix.info import hmatrix_info, print_hmatrix_information
@@ -41,6 +47,7 @@ __all__ = [
     "HMatrixBuilder",
     "build_hmatrix",
     "assemble_from_plan",
+    "hmatrix_from_dense",
     "batched_partial_aca",
     "matvec",
     "matvec_user",

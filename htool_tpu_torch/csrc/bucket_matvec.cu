@@ -10,7 +10,11 @@
 //
 // where B_i is a dense block D_i [bm, bn] or a low-rank block U_i [bm, r] ·
 // V_i [r, bn], op is B_i or B_iᵀ, and in_w/out_w are bn/bm (bm/bn when
-// transposed).  The offsets are the bucket's own int64 t_off/s_off; the root
+// transposed).  The scalar is float, double, or interleaved complex
+// (complex64 / complex128 as PyTorch stores them); for complex scalars
+// `conj` applies conj(D_i), or conj(U_i) and conj(V_i), so op ranges over
+// B, Bᵀ, conj(B) and Bᴴ (the mirrored terms of hermitian storage).  The
+// offsets are the bucket's own int64 t_off/s_off; the root
 // offsets are subtracted here, so a partition-restricted block row (whose
 // local side is numbered from its root) launches no index arithmetic of its
 // own.
@@ -44,6 +48,7 @@ template <typename S>
 struct BucketParams {
   int kind;                  // 0 = dense, 1 = low rank
   int trans;                 // apply blocks transposed
+  int conj;                  // apply blocks conjugated (complex scalars)
   const S* data;             // dense [nb, bm, bn]
   const S* U;                // low rank [nb, bm, r]
   const S* V;                // low rank [nb, r, bn]
@@ -70,7 +75,7 @@ __global__ void __launch_bounds__(NT) bucket_matvec_kernel(BucketParams<S> p) {
   const long long io = p.in_off[b] - p.in_root;
   const long long oo = p.out_off[b] - p.out_root;
   if (io < 0 || io + in_w > p.x_rows || oo < 0 || oo + out_w > p.y_rows) __trap();
-  apply_block<S, KC>(p.kind, p.trans, p.data, p.U, p.V, b, p.bm, p.bn, p.r,
+  apply_block<S, KC>(p.kind, p.trans, p.conj, p.data, p.U, p.V, b, p.bm, p.bn, p.r,
                      p.x + io * p.k + j0, p.k, p.y + oo * p.k + j0, p.k, kc,
                      red, tbuf);
 }
@@ -92,70 +97,56 @@ int dispatch(const BucketParams<S>& p, int nb, void* stream) {
 }
 
 template <typename S>
-int dense(int trans, const S* data, int nb, int bm, int bn,
+int dense(int trans, int conj, const void* data, int nb, int bm, int bn,
           const long long* in_off, const long long* out_off, long long in_root,
-          long long out_root, const S* x, long long x_rows, int k, S* y,
+          long long out_root, const void* x, long long x_rows, int k, void* y,
           long long y_rows, void* stream) {
-  BucketParams<S> p{0, trans, data, nullptr, nullptr, bm, bn, 0, in_off, out_off,
-                    in_root, out_root, x, x_rows, k, y, y_rows};
+  BucketParams<S> p{0, trans, conj, static_cast<const S*>(data), nullptr,
+                    nullptr, bm, bn, 0, in_off, out_off, in_root, out_root,
+                    static_cast<const S*>(x), x_rows, k, static_cast<S*>(y),
+                    y_rows};
   return dispatch<S>(p, nb, stream);
 }
 
 template <typename S>
-int low_rank(int trans, const S* U, const S* V, int nb, int bm, int bn, int r,
-             const long long* in_off, const long long* out_off,
-             long long in_root, long long out_root, const S* x,
-             long long x_rows, int k, S* y, long long y_rows, void* stream) {
-  BucketParams<S> p{1, trans, nullptr, U, V, bm, bn, r, in_off, out_off,
-                    in_root, out_root, x, x_rows, k, y, y_rows};
+int low_rank(int trans, int conj, const void* U, const void* V, int nb, int bm,
+             int bn, int r, const long long* in_off, const long long* out_off,
+             long long in_root, long long out_root, const void* x,
+             long long x_rows, int k, void* y, long long y_rows, void* stream) {
+  BucketParams<S> p{1, trans, conj, nullptr, static_cast<const S*>(U),
+                    static_cast<const S*>(V), bm, bn, r, in_off, out_off,
+                    in_root, out_root, static_cast<const S*>(x), x_rows, k,
+                    static_cast<S*>(y), y_rows};
   return dispatch<S>(p, nb, stream);
 }
 
 }  // namespace
 
+// One pair of entry points per scalar type; each returns the cudaError_t of
+// the launch (0 on success).  conj has no effect on the real types.
+#define HTOOL_BUCKET_ENTRIES(SUFFIX, S)                                        \
+  int htool_dense_bucket_matvec_##SUFFIX(                                      \
+      int trans, int conj, const void* data, int nb, int bm, int bn,           \
+      const long long* in_off, const long long* out_off, long long in_root,    \
+      long long out_root, const void* x, long long x_rows, int k, void* y,     \
+      long long y_rows, void* stream) {                                        \
+    return dense<S>(trans, conj, data, nb, bm, bn, in_off, out_off, in_root,   \
+                    out_root, x, x_rows, k, y, y_rows, stream);                \
+  }                                                                            \
+  int htool_lr_bucket_matvec_##SUFFIX(                                         \
+      int trans, int conj, const void* U, const void* V, int nb, int bm,       \
+      int bn, int r, const long long* in_off, const long long* out_off,        \
+      long long in_root, long long out_root, const void* x, long long x_rows,  \
+      int k, void* y, long long y_rows, void* stream) {                        \
+    return low_rank<S>(trans, conj, U, V, nb, bm, bn, r, in_off, out_off,      \
+                       in_root, out_root, x, x_rows, k, y, y_rows, stream);    \
+  }
+
 extern "C" {
 
-// Each returns the cudaError_t of the launch (0 on success).
-int htool_dense_bucket_matvec_f32(int trans, const float* data, int nb, int bm,
-                                  int bn, const long long* in_off,
-                                  const long long* out_off, long long in_root,
-                                  long long out_root, const float* x,
-                                  long long x_rows, int k, float* y,
-                                  long long y_rows, void* stream) {
-  return dense<float>(trans, data, nb, bm, bn, in_off, out_off, in_root,
-                      out_root, x, x_rows, k, y, y_rows, stream);
-}
-
-int htool_dense_bucket_matvec_f64(int trans, const double* data, int nb, int bm,
-                                  int bn, const long long* in_off,
-                                  const long long* out_off, long long in_root,
-                                  long long out_root, const double* x,
-                                  long long x_rows, int k, double* y,
-                                  long long y_rows, void* stream) {
-  return dense<double>(trans, data, nb, bm, bn, in_off, out_off, in_root,
-                       out_root, x, x_rows, k, y, y_rows, stream);
-}
-
-int htool_lr_bucket_matvec_f32(int trans, const float* U, const float* V,
-                               int nb, int bm, int bn, int r,
-                               const long long* in_off,
-                               const long long* out_off, long long in_root,
-                               long long out_root, const float* x,
-                               long long x_rows, int k, float* y,
-                               long long y_rows, void* stream) {
-  return low_rank<float>(trans, U, V, nb, bm, bn, r, in_off, out_off, in_root,
-                         out_root, x, x_rows, k, y, y_rows, stream);
-}
-
-int htool_lr_bucket_matvec_f64(int trans, const double* U, const double* V,
-                               int nb, int bm, int bn, int r,
-                               const long long* in_off,
-                               const long long* out_off, long long in_root,
-                               long long out_root, const double* x,
-                               long long x_rows, int k, double* y,
-                               long long y_rows, void* stream) {
-  return low_rank<double>(trans, U, V, nb, bm, bn, r, in_off, out_off, in_root,
-                          out_root, x, x_rows, k, y, y_rows, stream);
-}
+HTOOL_BUCKET_ENTRIES(f32, float)
+HTOOL_BUCKET_ENTRIES(f64, double)
+HTOOL_BUCKET_ENTRIES(c64, cplx<float>)
+HTOOL_BUCKET_ENTRIES(c128, cplx<double>)
 
 }  // extern "C"

@@ -8,7 +8,14 @@
 //     y[out_off[i] : out_off[i] + out_w, :] += op(B[blk[i]]) · x[in_off[i] : in_off[i] + in_w, :]
 //
 // where B is a dense block D (op = D or Dᵀ) or a low-rank block U·V with
-// U [bm, r], V [r, bn] (op applied as U (V x) or Vᵀ (Uᵀ x)).  The host plan
+// U [bm, r], V [r, bn] (op applied as U (V x) or Vᵀ (Uᵀ x)).  The scalar is
+// float, double, or interleaved complex (complex64 / complex128 as PyTorch
+// stores them); for complex scalars `conj` applies conj(D), or conj(U) and
+// conj(V), so op ranges over B, Bᵀ, conj(B) and Bᴴ.  This also replaces the
+// reference's complex route (build_tile_plan_complex + apply_complex_plans),
+// which splits every block into real and imaginary planes and runs 2 to 4
+// real launches per term because its kernel has no complex type: here a
+// complex entry is read once, as it is stored.  The host plan
 // (htool_tpu_torch/ops/tiled_matvec.py::build_tile_plan) sorts the blocks by
 // output offset, cuts the output into tiles of T rows and a tile's blocks
 // into steps of G slots.  The plan indexes the bucket's own arrays through
@@ -44,6 +51,7 @@ template <typename S>
 struct Params {
   int kind;            // 0 = dense, 1 = low rank
   int trans;           // apply blocks transposed
+  int conj;            // apply blocks conjugated (complex scalars)
   const S* data;       // dense [nb, bm, bn]
   const S* U;          // low rank [nb, bm, r]
   const S* V;          // low rank [nb, r, bn]
@@ -68,7 +76,7 @@ __global__ void __launch_bounds__(NT) tiled_matvec_kernel(Params<S> p) {
   for (int s = step * p.G; s < (step + 1) * p.G; ++s) {
     const int b = p.blk[s];
     if (b < 0) continue;  // padding slot of the step's last group
-    apply_block<S, KC>(p.kind, p.trans, p.data, p.U, p.V, b, p.bm, p.bn, p.r,
+    apply_block<S, KC>(p.kind, p.trans, p.conj, p.data, p.U, p.V, b, p.bm, p.bn, p.r,
                        p.x + (size_t)p.in_off[s] * p.k + j0, p.k,
                        p.y + (size_t)p.out_off[s] * p.k + j0, p.k, kc, red, tbuf);
   }
@@ -82,12 +90,14 @@ int launch(const Params<S>& p, int n_steps, cudaStream_t stream) {
 }
 
 template <typename S>
-int dispatch(int kind, int trans, const S* data, const S* U, const S* V,
-             int bm, int bn, int r, const int* blk, const int* in_off,
-             const int* out_off, int n_steps, int G, const S* x, int k, S* y,
-             void* stream) {
-  Params<S> p{kind, trans, data, U, V, bm, bn, r, blk, in_off, out_off, G,
-              x, k, y};
+int dispatch(int kind, int trans, int conj, const void* data, const void* U,
+             const void* V, int bm, int bn, int r, const int* blk,
+             const int* in_off, const int* out_off, int n_steps, int G,
+             const void* x, int k, void* y, void* stream) {
+  Params<S> p{kind, trans, conj, static_cast<const S*>(data),
+              static_cast<const S*>(U), static_cast<const S*>(V), bm, bn, r,
+              blk, in_off, out_off, G, static_cast<const S*>(x), k,
+              static_cast<S*>(y)};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (k == 1) return launch<S, 1>(p, n_steps, st);
   if (k == 2) return launch<S, 2>(p, n_steps, st);
@@ -97,26 +107,24 @@ int dispatch(int kind, int trans, const S* data, const S* U, const S* V,
 
 }  // namespace
 
+// One entry point per scalar type; each returns the cudaError_t of the launch
+// (0 on success).  conj has no effect on the real types.
+#define HTOOL_TILED_ENTRY(SUFFIX, S)                                           \
+  int htool_tiled_matvec_##SUFFIX(                                             \
+      int kind, int trans, int conj, const void* data, const void* U,          \
+      const void* V, int bm, int bn, int r, const int* blk, const int* in_off, \
+      const int* out_off, int n_steps, int G, const void* x, int k, void* y,   \
+      void* stream) {                                                          \
+    return dispatch<S>(kind, trans, conj, data, U, V, bm, bn, r, blk, in_off,  \
+                       out_off, n_steps, G, x, k, y, stream);                  \
+  }
+
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success).
-int htool_tiled_matvec_f32(int kind, int trans, const float* data,
-                           const float* U, const float* V, int bm, int bn,
-                           int r, const int* blk, const int* in_off,
-                           const int* out_off, int n_steps, int G,
-                           const float* x, int k, float* y, void* stream) {
-  return dispatch<float>(kind, trans, data, U, V, bm, bn, r, blk, in_off,
-                         out_off, n_steps, G, x, k, y, stream);
-}
-
-int htool_tiled_matvec_f64(int kind, int trans, const double* data,
-                           const double* U, const double* V, int bm, int bn,
-                           int r, const int* blk, const int* in_off,
-                           const int* out_off, int n_steps, int G,
-                           const double* x, int k, double* y, void* stream) {
-  return dispatch<double>(kind, trans, data, U, V, bm, bn, r, blk, in_off,
-                          out_off, n_steps, G, x, k, y, stream);
-}
+HTOOL_TILED_ENTRY(f32, float)
+HTOOL_TILED_ENTRY(f64, double)
+HTOOL_TILED_ENTRY(c64, cplx<float>)
+HTOOL_TILED_ENTRY(c128, cplx<double>)
 
 const char* htool_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -25,6 +25,7 @@ __all__ = [
     "Generator",
     "KernelGenerator",
     "MatrixGenerator",
+    "SubsetGenerator",
     "TransposedGenerator",
 ]
 
@@ -108,6 +109,26 @@ class KernelGenerator(Generator):
         tx = self.target_points[rows]  # [c, m, d]
         sy = self.source_points[cols]  # [c, n, d]
         return self.kernel(tx[:, :, None, :], sy[:, None, :, :]).to(self.dtype)
+
+
+class SubsetGenerator(Generator):
+    """Restriction of a generator to index subsets — the analog of
+    ``LocalGeneratorInUserNumberingFromMatrix`` (testing/generator_test.hpp:
+    263-277): local index i maps to global user index ``row_index[i]``."""
+
+    def __init__(self, base: Generator, row_index, col_index=None):
+        self.base = base
+        self.device = base.device
+        self.row_index = _as_index(row_index, self.device)
+        self.col_index = (
+            self.row_index if col_index is None else _as_index(col_index, self.device)
+        )
+        self.shape = (int(self.row_index.shape[0]), int(self.col_index.shape[0]))
+        self.dtype = base.dtype
+
+    def block(self, rows, cols):
+        return self.base.block(self.row_index[_as_index(rows, self.device)],
+                               self.col_index[_as_index(cols, self.device)])
 
 
 class TransposedGenerator(Generator):

@@ -1,5 +1,5 @@
 from .aca import batched_partial_aca
-from .assembly import HMatrixBuilder, assemble_from_plan, build_hmatrix
+from .assembly import HMatrixBuilder, assemble_from_plan, build_hmatrix, hmatrix_from_dense
 from .block_tree import BlockTreePlan, plan_block_tree, rjasanow_steinbach
 from .compressors import (
     batched_full_aca,

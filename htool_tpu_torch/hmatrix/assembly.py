@@ -27,7 +27,7 @@ from .compressors import batched_full_aca, batched_recompress, batched_svd_compr
 from .block_tree import BlockTreePlan, plan_block_tree
 from .hmatrix import DenseBucket, HMatrix, LowRankBucket
 
-__all__ = ["HMatrixBuilder", "build_hmatrix", "assemble_from_plan"]
+__all__ = ["HMatrixBuilder", "build_hmatrix", "assemble_from_plan", "hmatrix_from_dense"]
 
 
 def _pad_dim(s: int, mode: str = "pow2") -> int:
@@ -480,3 +480,53 @@ def build_hmatrix(
     return HMatrixBuilder(
         epsilon=epsilon, eta=eta, symmetry=symmetry, UPLO=UPLO, **kwargs
     ).build(generator, target_tree, source_tree, target_partition=target_partition)
+
+
+def hmatrix_from_dense(
+    A,
+    tree: ClusterTree,
+    target_partition: int = -1,
+    source_partition: int = -1,
+    device=None,
+) -> HMatrix:
+    """Wrap a DENSE (sub)matrix as a single-bucket HMatrix — the dense
+    local-operator of the distributed layer
+    (``implementations/global_to_local_operators/dense_matrix.hpp:9-45``).
+
+    ``A`` is in CLUSTER numbering and spans the (partition-restricted)
+    target/source ranges of ``tree``.  It lives on ``device`` (default: A's
+    own when it is a tensor, else the CPU)."""
+    if device is None:
+        device = A.device if torch.is_tensor(A) else "cpu"
+    A = torch.as_tensor(A, device=device)
+    offs, sizes = tree.partition_offsets_sizes()
+    t_off = int(offs[target_partition]) if target_partition >= 0 else 0
+    t_size = int(sizes[target_partition]) if target_partition >= 0 else tree.n_points
+    s_off = int(offs[source_partition]) if source_partition >= 0 else 0
+    s_size = int(sizes[source_partition]) if source_partition >= 0 else tree.n_points
+    if tuple(A.shape) != (t_size, s_size):
+        raise ValueError(
+            f"dense block has shape {tuple(A.shape)}, expected ({t_size}, {s_size})"
+        )
+    bm = max(8, -(-t_size // 8) * 8)
+    bn = max(8, -(-s_size // 8) * 8)
+    data = torch.zeros((1, bm, bn), dtype=A.dtype, device=A.device)
+    data[0, :t_size, :s_size] = A
+    bucket = DenseBucket(
+        data=data,
+        t_off=torch.tensor([t_off], dtype=torch.int64, device=A.device),
+        s_off=torch.tensor([s_off], dtype=torch.int64, device=A.device),
+        t_sizes=np.array([t_size]),
+        s_sizes=np.array([s_size]),
+    )
+    perm = torch.as_tensor(np.asarray(tree.permutation), dtype=torch.int64, device=A.device)
+    return HMatrix(
+        shape=(t_size, tree.n_points),
+        dense_buckets=[bucket],
+        lr_buckets=[],
+        perm_t=perm,
+        perm_s=perm,
+        t_root_off=t_off,
+        info=dict(epsilon=0.0, eta=0.0, n_false_positive=0,
+                  n_dense_blocks=1, n_low_rank_blocks=0),
+    )

@@ -4,9 +4,9 @@ Port of ``htool_tpu/hmatrix/linalg.py`` (the reference's leaf-loop
 products, ``hmatrix/linalg/add_hmatrix_vector_product.hpp:17-206``): per
 bucket term, the tiled Hopper kernel over a prepared plan
 (:mod:`..ops.tiled_matvec`), or, without a plan, the unplanned Hopper
-kernels (:mod:`..ops.bucket_matvec`).  Complex products take a batched
-gather → ``bmm`` → ``index_add_`` (the port of the JAX package's XLA
-path).  Padded rows/cols are exact zeros, so no masking is needed.
+kernels (:mod:`..ops.bucket_matvec`), for real and complex operators alike
+(the kernels take complex64 and complex128 as scalars of their own).
+Padded rows/cols are exact zeros, so no masking is needed.
 Symmetric/hermitian mirrored contributions
 (``add_hmatrix_vector_product.hpp:56-104``) are separate bucket terms with
 the transposed/conjugated operand.
@@ -23,13 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.bucket_matvec import (
-    dense_bucket_matvec,
-    dense_bucket_matvec_reference,
-    lr_bucket_matvec,
-    lr_bucket_matvec_reference,
-)
-from ..ops.tiled_matvec import build_tile_plan, tiled_bucket_matvec
+from ..ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
+from ..ops.tiled_matvec import build_tile_plan, build_tile_plan_complex, tiled_bucket_matvec
 from .hmatrix import DenseBucket, HMatrix
 
 __all__ = [
@@ -56,19 +51,17 @@ def _pad_in_of(h: HMatrix) -> int:
 
 def prepare_tiled_matvec(h: HMatrix, tile_rows: Optional[int] = None) -> HMatrix:
     """Attach tiled-product plans (:mod:`..ops.tiled_matvec`) to every
-    bucket of a GLOBAL real H-matrix, both output sides, in place.  Products
-    then run the Hopper kernel on every bucket term.  Complex H-matrices
-    get no plans yet (their products take the gather path).  Call once,
-    after assembly."""
+    bucket of a GLOBAL H-matrix, real or complex, both output sides, in
+    place.  Products then run the tiled Hopper kernel on every bucket term.
+    Call once, after assembly."""
     if h.t_root_off != 0:
         raise ValueError("tiled plans require a global (non-restricted) H-matrix")
-    if h.dtype.is_complex:
-        return h
     pad_in = _pad_in_of(h)
     m, n = h.shape
+    build = build_tile_plan_complex if h.dtype.is_complex else build_tile_plan
     for bucket in h.dense_buckets + h.lr_buckets:
-        bucket.plan_t = build_tile_plan(bucket, "t", m + pad_in, tile_rows)
-        bucket.plan_s = build_tile_plan(bucket, "s", n + pad_in, tile_rows)
+        bucket.plan_t = build(bucket, "t", m + pad_in, tile_rows)
+        bucket.plan_s = build(bucket, "s", n + pad_in, tile_rows)
     return h
 
 
@@ -134,13 +127,18 @@ def matvec(h: HMatrix, x, op: str = "N"):
     GLOBAL-size output (the caller reduces across partitions).
 
     A bucket term with a plan runs the tiled kernel
-    (:func:`..ops.tiled_matvec.tiled_bucket_matvec`); a real term without
-    one runs the unplanned kernels (:func:`..ops.bucket_matvec.dense_bucket_matvec`,
-    :func:`..ops.bucket_matvec.lr_bucket_matvec`).  When the product's
-    dtype is wider than the H-matrix's (a float64 input against float32
-    blocks), the kernels run on the blocks cast to the product's dtype.
-    Complex products take the gather → ``bmm`` → ``index_add_`` path.  Each
-    call adds one to ``matvec.products``.
+    (:func:`..ops.tiled_matvec.tiled_bucket_matvec`); a term without one
+    runs the unplanned kernels (:func:`..ops.bucket_matvec.dense_bucket_matvec`,
+    :func:`..ops.bucket_matvec.lr_bucket_matvec`).  Mode 'T' applies the
+    stored blocks transposed, 'C' transposed and conjugated, 'conj'
+    conjugated (the mirrored terms of hermitian storage).  When the
+    product's dtype is wider than the H-matrix's (a float64 or complex128
+    input against float32 or complex64 blocks), the kernels run on the
+    blocks cast to the product's dtype.  A real H-matrix applied to a
+    complex x runs the real kernels on x and y viewed as real ``[·, 2k]``
+    tensors (``torch.view_as_real``, no copy): the blocks are real, so the
+    real and imaginary parts are 2k independent columns.  Each call adds
+    one to ``matvec.products``.
     """
     x = torch.as_tensor(x, device=h.device)
     squeeze = x.ndim == 1
@@ -156,38 +154,40 @@ def matvec(h: HMatrix, x, op: str = "N"):
     pad_in = _pad_in_of(h)
     x_pad = torch.cat([x.to(dtype), torch.zeros((pad_in, k), dtype=dtype, device=x.device)])
     y_pad = torch.zeros((out_len + pad_in, k), dtype=dtype, device=x.device)
+    # what the kernels see: the product's dtype, or its real parts as columns
+    kdtype, x_k, y_k = dtype, x_pad, y_pad
+    if dtype.is_complex and not h.dtype.is_complex:
+        kdtype = x_pad.real.dtype
+        x_k = torch.view_as_real(x_pad).view(x_pad.shape[0], 2 * k)
+        y_k = torch.view_as_real(y_pad).view(y_pad.shape[0], 2 * k)
 
     for bucket in h.dense_buckets + h.lr_buckets:
         is_dense = isinstance(bucket, DenseBucket)
         for in_side, out_side, mode, is_mirror in _bucket_terms(bucket, op, h.symmetry):
             plan = bucket.plan_t if out_side == "t" else bucket.plan_s
-            if plan is not None and not dtype.is_complex:
+            trans = mode in ("T", "C")  # a side-"s" plan is a transposed one
+            conj = kdtype.is_complex and mode in ("C", "conj")
+            if plan is not None:
                 if plan.out_len != y_pad.shape[0]:
                     raise ValueError(
                         f"tiled plan writes {plan.out_len} rows, the product has "
                         f"{y_pad.shape[0]}: prepare_tiled_matvec again after "
                         "changing the H-matrix"
                     )
-                if plan.dtype != dtype:
-                    plan = plan.astype(dtype)
-                tiled_bucket_matvec(plan, x_pad, out=y_pad)
+                if plan.dtype != kdtype:
+                    plan = plan.astype(kdtype)
+                tiled_bucket_matvec(plan, x_k, out=y_k, conj=conj)
                 continue
 
             in_off, out_off, in_root, out_root = _term_offsets(h, bucket, in_side, out_side,
                                                                is_mirror)
-            offs = (in_off, out_off)
-            kw = dict(in_root=in_root, out_root=out_root, out=y_pad)
-            trans = mode in ("T", "C")  # real dtypes: 'C' is 'T', 'conj' is 'N'
-            if dtype.is_complex:
-                kw["conj"] = mode in ("C", "conj")
-                run_dense, run_lr = dense_bucket_matvec_reference, lr_bucket_matvec_reference
-            else:
-                run_dense, run_lr = dense_bucket_matvec, lr_bucket_matvec
+            kw = dict(in_root=in_root, out_root=out_root, out=y_k, conj=conj)
             if is_dense:
-                run_dense(bucket.data.to(dtype), *offs, x_pad, trans, y_pad.shape[0], **kw)
+                dense_bucket_matvec(bucket.data.to(kdtype), in_off, out_off, x_k, trans,
+                                    y_k.shape[0], **kw)
             else:
-                run_lr(bucket.U.to(dtype), bucket.V.to(dtype), *offs, x_pad, trans,
-                       y_pad.shape[0], **kw)
+                lr_bucket_matvec(bucket.U.to(kdtype), bucket.V.to(kdtype), in_off, out_off,
+                                 x_k, trans, y_k.shape[0], **kw)
 
     matvec.products += 1
     y = y_pad[:out_len]

@@ -22,7 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_info", "check"]
+__all__ = ["load_library", "build_info", "check", "entry_point", "count_launch",
+           "SUFFIX_OF"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -30,6 +31,11 @@ _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# entry-point suffix of each scalar type the kernels are compiled for
+# (torch is imported by the callers, not here: the keys are dtype names)
+SUFFIX_OF = {"float32": "_f32", "float64": "_f64", "complex64": "_c64",
+             "complex128": "_c128"}
 
 # filled by the first load: build seconds, library path, ptxas report
 build_info: dict = {}
@@ -55,15 +61,15 @@ def _sources() -> list[Path]:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "htool_tiled_matvec": [ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci,
+        "htool_tiled_matvec": [ci, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci,
                                vp, ci, vp, vp],
-        "htool_dense_bucket_matvec": [ci, vp, ci, ci, ci, vp, vp, ll, ll, vp, ll,
+        "htool_dense_bucket_matvec": [ci, ci, vp, ci, ci, ci, vp, vp, ll, ll, vp, ll,
                                       ci, vp, ll, vp],
-        "htool_lr_bucket_matvec": [ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp,
+        "htool_lr_bucket_matvec": [ci, ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp,
                                    ll, ci, vp, ll, vp],
     }
     for base, argtypes in signatures.items():
-        for suffix in ("_f32", "_f64"):
+        for suffix in SUFFIX_OF.values():
             fn = getattr(lib, base + suffix)
             fn.argtypes = argtypes
             fn.restype = ci
@@ -115,6 +121,24 @@ def load_library() -> ctypes.CDLL:
         ptxas=log.read_text() if log.exists() else "",
     )
     return lib
+
+
+def entry_point(base: str, dtype):
+    """The library's function ``base`` for a torch dtype (building the
+    library at first use); raises ``TypeError`` for a dtype the kernels are
+    not compiled for."""
+    suffix = SUFFIX_OF.get(str(dtype).removeprefix("torch."))
+    if suffix is None:
+        raise TypeError(f"{base}: the kernel takes float32, float64, complex64 or "
+                        f"complex128, got {dtype}")
+    return getattr(load_library(), base + suffix)
+
+
+def count_launch(wrapper, dtype) -> None:
+    """Add one kernel launch to a wrapper's counts: ``wrapper.launches`` and
+    ``wrapper.launches_by_dtype[dtype]``."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[dtype] = wrapper.launches_by_dtype.get(dtype, 0) + 1
 
 
 def check(code: int) -> None:

@@ -7,7 +7,9 @@ product without a tiled plan::
     y[out_off[i] - out_root : + out_w] += op(B_i) · x[in_off[i] - in_root : + in_w]
 
 for every block B_i of the bucket: a dense block ``data[i]`` or a low-rank
-block ``U[i] @ V[i]``, with op = B_i, or B_iᵀ when ``trans``.  The offsets
+block ``U[i] @ V[i]``, with op = B_i, B_iᵀ when ``trans``, conj(B_i) when
+``conj``, B_iᴴ with both (for a low-rank block ``conj`` conjugates U and V;
+the mirrored terms of hermitian storage need these modes).  The offsets
 are the bucket's own ``t_off``/``s_off``; ``in_root``/``out_root`` are the
 root offsets a partition-restricted block row subtracts on its local side.
 
@@ -17,11 +19,13 @@ runs one block per CTA and adds into y with atomics.  Not ported: the VMEM
 gate ``pallas_matvec_ok``, block grouping (``_group_factor``, ``_pad_group``)
 and the ``HTOOL_TPU_PALLAS`` switch.
 
-The wrappers take float32 or float64 blocks of the same dtype as x.  CPU
-tensors run the plain version (gather → ``bmm`` → ``index_add_``); CUDA
-tensors launch the kernel or raise; other devices and other dtypes raise.
-Each launch adds one to the wrapper's ``launches``; a bucket with no blocks
-launches nothing.
+The wrappers take float32, float64, complex64 or complex128 blocks of the
+same dtype as x; the complex kernels read interleaved entries as PyTorch
+stores them.  CPU tensors run the plain version (gather → ``bmm`` →
+``index_add_``); CUDA tensors launch the kernel or raise; other devices and
+other dtypes raise.
+Each launch adds one to the wrapper's ``launches`` and to its
+``launches_by_dtype[dtype]``; a bucket with no blocks launches nothing.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ __all__ = [
     "lr_bucket_matvec_reference",
 ]
 
-_KERNEL_DTYPES = (torch.float32, torch.float64)
+_KERNEL_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
 
 def _rows(off: torch.Tensor, root: int, width: int, device) -> torch.Tensor:
@@ -87,8 +91,8 @@ def _checked(name, blocks, in_off, out_off, x_pad, out_len, out):
     """Validate the operands; returns (y, k) with y the output to add into."""
     dtype = x_pad.dtype
     if dtype not in _KERNEL_DTYPES or any(b.dtype != dtype for b in blocks):
-        raise TypeError(f"{name}: takes float32/float64 blocks of x's dtype, got blocks "
-                        f"{blocks[0].dtype} and x {dtype}")
+        raise TypeError(f"{name}: takes float32/float64/complex64/complex128 blocks of "
+                        f"x's dtype, got blocks {blocks[0].dtype} and x {dtype}")
     if x_pad.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x_pad.device}")
     nb = int(blocks[0].shape[0])
@@ -114,63 +118,62 @@ def _checked(name, blocks, in_off, out_off, x_pad, out_len, out):
     return out, k
 
 
-def _launch(fn, args, x_pad):
-    from ..kernels import check
+def _launch(wrapper, base, args, x_pad):
+    from ..kernels import check, count_launch, entry_point
 
+    fn = entry_point(base, x_pad.dtype)
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         check(fn(*args, ctypes.c_void_p(stream)))
+    count_launch(wrapper, x_pad.dtype)
 
 
 def dense_bucket_matvec(data, in_off, out_off, x_pad, trans: bool, out_len: int,
                         *, in_root: int = 0, out_root: int = 0,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None,
+                        conj: bool = False) -> torch.Tensor:
     """One dense bucket term: data [nb, bm, bn], int64 offsets [nb], x_pad
-    [L, k].  Returns y [out_len, k], added into ``out`` when it is given."""
+    [L, k]; ``conj`` applies conj(data).  Returns y [out_len, k], added into
+    ``out`` when it is given."""
     y, k = _checked("dense_bucket_matvec", [data], in_off, out_off, x_pad, out_len, out)
     if x_pad.device.type == "cpu":
         return dense_bucket_matvec_reference(data, in_off, out_off, x_pad, trans, out_len,
-                                             in_root=in_root, out_root=out_root, out=out)
+                                             in_root=in_root, out_root=out_root, out=out,
+                                             conj=conj)
     nb, bm, bn = (int(s) for s in data.shape)
     if nb == 0 or k == 0:
         return y
-    from ..kernels import load_library
-
-    lib = load_library()
-    fn = lib.htool_dense_bucket_matvec_f32 if x_pad.dtype == torch.float32 \
-        else lib.htool_dense_bucket_matvec_f64
-    _launch(fn, (int(trans), data.data_ptr(), nb, bm, bn, in_off.data_ptr(),
-                 out_off.data_ptr(), int(in_root), int(out_root), x_pad.data_ptr(),
-                 int(x_pad.shape[0]), k, y.data_ptr(), int(out_len)), x_pad)
-    dense_bucket_matvec.launches += 1
+    _launch(dense_bucket_matvec, "htool_dense_bucket_matvec",
+            (int(trans), int(bool(conj)), data.data_ptr(), nb, bm, bn, in_off.data_ptr(),
+             out_off.data_ptr(), int(in_root), int(out_root), x_pad.data_ptr(),
+             int(x_pad.shape[0]), k, y.data_ptr(), int(out_len)), x_pad)
     return y
 
 
 def lr_bucket_matvec(U, V, in_off, out_off, x_pad, trans: bool, out_len: int,
                      *, in_root: int = 0, out_root: int = 0,
-                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     out: Optional[torch.Tensor] = None,
+                     conj: bool = False) -> torch.Tensor:
     """One low-rank bucket term: U [nb, bm, r], V [nb, r, bn], int64 offsets
-    [nb], x_pad [L, k].  Returns y [out_len, k], added into ``out`` when it
-    is given."""
+    [nb], x_pad [L, k]; ``conj`` conjugates both factors.  Returns y
+    [out_len, k], added into ``out`` when it is given."""
     y, k = _checked("lr_bucket_matvec", [U, V], in_off, out_off, x_pad, out_len, out)
     if x_pad.device.type == "cpu":
         return lr_bucket_matvec_reference(U, V, in_off, out_off, x_pad, trans, out_len,
-                                          in_root=in_root, out_root=out_root, out=out)
+                                          in_root=in_root, out_root=out_root, out=out,
+                                          conj=conj)
     nb, bm, r = (int(s) for s in U.shape)
     bn = int(V.shape[2])
     if nb == 0 or k == 0:
         return y
-    from ..kernels import load_library
-
-    lib = load_library()
-    fn = lib.htool_lr_bucket_matvec_f32 if x_pad.dtype == torch.float32 \
-        else lib.htool_lr_bucket_matvec_f64
-    _launch(fn, (int(trans), U.data_ptr(), V.data_ptr(), nb, bm, bn, r, in_off.data_ptr(),
-                 out_off.data_ptr(), int(in_root), int(out_root), x_pad.data_ptr(),
-                 int(x_pad.shape[0]), k, y.data_ptr(), int(out_len)), x_pad)
-    lr_bucket_matvec.launches += 1
+    _launch(lr_bucket_matvec, "htool_lr_bucket_matvec",
+            (int(trans), int(bool(conj)), U.data_ptr(), V.data_ptr(), nb, bm, bn, r,
+             in_off.data_ptr(), out_off.data_ptr(), int(in_root), int(out_root),
+             x_pad.data_ptr(), int(x_pad.shape[0]), k, y.data_ptr(), int(out_len)), x_pad)
     return y
 
 
 dense_bucket_matvec.launches = 0
+dense_bucket_matvec.launches_by_dtype = {}
 lr_bucket_matvec.launches = 0
+lr_bucket_matvec.launches_by_dtype = {}

@@ -1,9 +1,10 @@
 """Tiled bucket matvec: host plan, Hopper kernel wrapper, plain version.
 
 Port of ``htool_tpu/ops/tiled_matvec.py`` (``TilePlan``,
-``build_tile_plan``, ``tiled_bucket_matvec``).  The plan semantics are the
-reference's: a bucket's blocks are sorted by output offset and packed into
-output tiles of T rows; a block that runs past its tile's end spills into
+``build_tile_plan``, ``build_tile_plan_complex``, ``tiled_bucket_matvec``).
+The plan semantics are the reference's: a bucket's blocks are sorted by
+output offset and packed into output tiles of T rows; a block that runs
+past its tile's end spills into
 the tile's extension zone of E = out_w rows; offsets are tile-relative
 (``out_rel``), and ``tile_of``/``first_of`` describe the walk over steps.
 The plain version keeps those semantics: it accumulates tiles and folds
@@ -28,8 +29,16 @@ Hopper differences (no VMEM, no sequential grid):
   (``blk``) instead of materializing sorted, padded copies; U keeps the
   bucket's ``[nb, bm, r]`` layout (the reference stores it transposed for
   the TPU's (8, 128) tiling).
-- No split two-stage plans: with no VMEM gate, every real bucket gets a
+- No split two-stage plans: with no VMEM gate, every bucket gets a
   one-shot plan, including wide low-rank buckets.
+- Complex buckets need no plane plans.  The reference splits a complex64
+  bucket into real and imaginary planes (``ComplexPlans``,
+  ``apply_complex_plans``: 2 launches per dense term, 4 per low-rank term,
+  a ``sigma`` sign for the conjugated modes, a VMEM gate
+  ``complex_plans_ok``) because its kernel has no complex type.  The CUDA
+  kernel has one, so :func:`build_tile_plan_complex` is an ordinary plan
+  over the bucket's complex tensors, of either width, and
+  ``tiled_bucket_matvec(..., conj=True)`` gives the conjugated modes.
 
 The kernel is ``htool_tpu_torch/csrc/tiled_matvec.cu``.  The wrapper
 launches it for CUDA tensors and runs :func:`tiled_bucket_matvec_reference`
@@ -49,6 +58,7 @@ import torch
 __all__ = [
     "TilePlan",
     "build_tile_plan",
+    "build_tile_plan_complex",
     "tiled_bucket_matvec",
     "tiled_bucket_matvec_reference",
 ]
@@ -176,6 +186,20 @@ def build_tile_plan(bucket, out_side: str, out_len: int,
     return TilePlan(kind="lr", U=bucket.U, V=bucket.V, **kw)
 
 
+def build_tile_plan_complex(bucket, out_side: str, out_len: int,
+                            tile_rows: Optional[int] = None) -> TilePlan:
+    """Plan for a complex bucket (complex64 or complex128): the counterpart
+    of the reference's ``build_tile_plan_complex``.  There a complex bucket
+    becomes real plans over its real and imaginary planes; here the kernel
+    reads interleaved complex entries, so the plan is :func:`build_tile_plan`'s
+    over the bucket's own complex tensors and no plane copy exists.  The
+    conjugated modes are ``tiled_bucket_matvec(plan, x, conj=True)``."""
+    blocks = bucket.data if getattr(bucket, "data", None) is not None else bucket.U
+    if not blocks.dtype.is_complex:
+        raise TypeError(f"build_tile_plan_complex: the bucket is {blocks.dtype}")
+    return build_tile_plan(bucket, out_side, out_len, tile_rows)
+
+
 def _fold(parts: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """y[t·T : t·T + T + E] += parts[i] for every step i of tile t, as
     ceil((T+E)/T) adds of T-row slabs."""
@@ -191,11 +215,12 @@ def _fold(parts: torch.Tensor, plan: TilePlan) -> torch.Tensor:
 
 
 def tiled_bucket_matvec_reference(plan: TilePlan, x_pad: torch.Tensor,
-                                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                  out: Optional[torch.Tensor] = None,
+                                  conj: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the tiled kernel: gather the input windows
     and blocks of the plan's slots, batched matmul, ``index_add_`` into the
-    steps' partial tiles, fold.  Returns y [out_len, k], added into ``out``
-    when it is given."""
+    steps' partial tiles, fold.  ``conj`` applies the conjugated blocks.
+    Returns y [out_len, k], added into ``out`` when it is given."""
     k = x_pad.shape[1]
     dev = x_pad.device
     TE = plan.T + plan.E
@@ -217,10 +242,14 @@ def tiled_bucket_matvec_reference(plan: TilePlan, x_pad: torch.Tensor,
         xg = x_pad[io[lo : lo + step, None] + ar_in]  # [c, in_w, k]
         if plan.kind == "dense":
             D = plan.data[bc].to(x_pad.dtype)
+            if conj:
+                D = D.conj()
             contrib = (D.transpose(1, 2) if plan.trans else D) @ xg
         else:
             U = plan.U[bc].to(x_pad.dtype)
             V = plan.V[bc].to(x_pad.dtype)
+            if conj:
+                U, V = U.conj(), V.conj()
             if plan.trans:
                 contrib = V.transpose(1, 2) @ (U.transpose(1, 2) @ xg)
             else:
@@ -232,23 +261,24 @@ def tiled_bucket_matvec_reference(plan: TilePlan, x_pad: torch.Tensor,
 
 
 def tiled_bucket_matvec(plan: TilePlan, x_pad: torch.Tensor,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None,
+                        conj: bool = False) -> torch.Tensor:
     """Run one bucket term: returns y [out_len, k], added into ``out`` (a
-    contiguous [out_len, k] tensor) when it is given.
+    contiguous [out_len, k] tensor) when it is given.  ``conj`` applies the
+    conjugated blocks (with the plan's ``trans``: Bᴴ).
 
-    CUDA tensors launch the Hopper kernel (float32 or float64, same dtype
-    as the plan's blocks); CPU tensors run the plain version.  Each launch
-    adds one to ``tiled_bucket_matvec.launches``."""
+    CUDA tensors launch the Hopper kernel (float32, float64, complex64 or
+    complex128, same dtype as the plan's blocks); CPU tensors run the plain
+    version.  Each launch adds one to ``tiled_bucket_matvec.launches`` and
+    to ``tiled_bucket_matvec.launches_by_dtype[dtype]``."""
     if x_pad.device.type == "cpu":
-        return tiled_bucket_matvec_reference(plan, x_pad, out)
+        return tiled_bucket_matvec_reference(plan, x_pad, out, conj)
     if x_pad.device.type != "cuda":
         raise ValueError(f"tiled_bucket_matvec: unsupported device {x_pad.device}")
     blocks = [plan.data] if plan.kind == "dense" else [plan.U, plan.V]
     ints = [plan.blk, plan.in_off, plan.out_off]
     dtype = x_pad.dtype
     k = int(x_pad.shape[1]) if x_pad.ndim == 2 else 0
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"tiled_bucket_matvec: kernel takes float32/float64, got {dtype}")
     if x_pad.ndim != 2 or not x_pad.is_contiguous():
         raise ValueError("tiled_bucket_matvec: x_pad must be a contiguous [L, k] tensor")
     if out is None:
@@ -267,9 +297,9 @@ def tiled_bucket_matvec(plan: TilePlan, x_pad: torch.Tensor,
     if x_pad.shape[0] < plan.in_end:
         raise ValueError(f"tiled_bucket_matvec: x_pad has {x_pad.shape[0]} rows, "
                          f"the plan reads {plan.in_end}")
-    from ..kernels import check, load_library
+    from ..kernels import check, count_launch, entry_point
 
-    lib = load_library()
+    fn = entry_point("htool_tiled_matvec", dtype)
     if plan.kind == "dense":
         bm, bn = plan.data.shape[1], plan.data.shape[2]
         r = 0
@@ -277,19 +307,19 @@ def tiled_bucket_matvec(plan: TilePlan, x_pad: torch.Tensor,
     else:
         bm, r, bn = plan.U.shape[1], plan.U.shape[2], plan.V.shape[2]
         ptrs = (None, plan.U.data_ptr(), plan.V.data_ptr())
-    fn = lib.htool_tiled_matvec_f32 if dtype == torch.float32 else lib.htool_tiled_matvec_f64
     with torch.cuda.device(x_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(
-            0 if plan.kind == "dense" else 1, int(plan.trans), *ptrs,
+            0 if plan.kind == "dense" else 1, int(plan.trans), int(bool(conj)), *ptrs,
             int(bm), int(bn), int(r),
             plan.blk.data_ptr(), plan.in_off.data_ptr(), plan.out_off.data_ptr(),
             int(plan.n_steps), int(plan.G),
             x_pad.data_ptr(), k, out.data_ptr(), ctypes.c_void_p(stream),
         )
     check(code)
-    tiled_bucket_matvec.launches += 1
+    count_launch(tiled_bucket_matvec, dtype)
     return out
 
 
 tiled_bucket_matvec.launches = 0
+tiled_bucket_matvec.launches_by_dtype = {}

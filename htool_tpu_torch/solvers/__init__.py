@@ -1,5 +1,5 @@
 from .ddm import DDMSolver, SchwarzPreconditioner, build_geometric_overlap
-from .krylov import KrylovResult, cg, gmres
+from .krylov import KrylovResult, block_gmres, cg, gmres
 
 __all__ = [
     "DDMSolver",
@@ -8,4 +8,5 @@ __all__ = [
     "KrylovResult",
     "cg",
     "gmres",
+    "block_gmres",
 ]

@@ -30,7 +30,7 @@ import torch
 
 from ..clustering.cluster_tree import ClusterTree
 from ..generator import Generator
-from .krylov import KrylovResult, cg, gmres
+from .krylov import KrylovResult, block_gmres, cg, gmres
 
 __all__ = [
     "build_geometric_overlap",
@@ -259,6 +259,10 @@ class DDMSolver:
             result: KrylovResult = cg(self._apply, bc, M=M, tol=tol, maxiter=maxiter, x0=x0)
         elif krylov == "gmres":
             result = gmres(
+                self._apply, bc, M=M, tol=tol, maxiter=maxiter, restart=restart, x0=x0
+            )
+        elif krylov == "block_gmres":
+            result = block_gmres(
                 self._apply, bc, M=M, tol=tol, maxiter=maxiter, restart=restart, x0=x0
             )
         else:

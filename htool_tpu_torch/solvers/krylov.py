@@ -1,4 +1,4 @@
-"""Krylov solvers — CG and restarted GMRES with preconditioning.
+"""Krylov solvers — CG, restarted GMRES and block GMRES with preconditioning.
 
 Port of ``htool_tpu/solvers/krylov.py`` (the role of HPDDM's Krylov loop,
 ``solvers/ddm.hpp:193``).  The ``lax.while_loop`` iterations become Python
@@ -6,7 +6,9 @@ loops over tensors that read their stopping tests on the host; the
 arithmetic is the reference's: per-column step sizes over multiple
 right-hand sides, left preconditioning, modified Gram-Schmidt, the same
 Givens convention, the preconditioned stopping test and a true final
-residual.  The ``axis_name`` hook (mesh collectives) is not ported yet.
+residual; for block GMRES the blocked Gram-Schmidt, the Gram-based QR
+through a shifted Cholesky factor and the least-squares residual per step.
+The ``axis_name`` hook (mesh collectives) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["cg", "gmres", "KrylovResult"]
+__all__ = ["cg", "gmres", "block_gmres", "KrylovResult"]
 
 
 class KrylovResult(NamedTuple):
@@ -201,3 +203,118 @@ def gmres(
     true_res = float(torch.max(_norm_cols(b - A(x)) / tnorm))
     out = x[:, 0] if squeeze else x
     return KrylovResult(out, it, true_res, res <= tol)
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """float64 / complex128: the dtype of block GMRES's small problems."""
+    return torch.complex128 if dtype.is_complex else torch.float64
+
+
+def _block_qr(W):
+    """Gram-based QR of the tall block W [n, mu]: W = Q R with R the
+    conjugate transpose of the Cholesky factor of Wᴴ W, shifted by 1e-30 so
+    the factor stays invertible when columns have converged.  The Gram
+    matrix is formed in W's dtype and factored in double precision; R comes
+    back in double."""
+    mu = W.shape[1]
+    G = (W.mH @ W).to(_wide(W.dtype))
+    L = torch.linalg.cholesky(G + 1e-30 * torch.eye(mu, dtype=G.dtype, device=G.device))
+    R = L.mH
+    Q = torch.linalg.solve_triangular(R.to(W.dtype), W, upper=True, left=False)  # W R⁻¹
+    return Q, R
+
+
+def _lstsq_residual(Hm, gm):
+    """Minimum-norm solution of min ‖Hm Y − gm‖ through the SVD, with the
+    reference's cut of singular values below eps · max(shape) · s_max, and
+    the residual norm of each column."""
+    U, s, Vh = torch.linalg.svd(Hm, full_matrices=False)
+    keep = s >= torch.finfo(s.dtype).eps * max(Hm.shape) * s[0]
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, 1.0), 0.0).to(Hm.dtype)
+    Y = Vh.mH @ (s_inv[:, None] * (U.mH @ gm))
+    r = gm - Hm @ Y
+    return Y, torch.sqrt(torch.sum(r.abs() ** 2, dim=0))
+
+
+def block_gmres(
+    A: Callable,
+    b,
+    M: Optional[Callable] = None,
+    x0=None,
+    tol: float = 1e-6,
+    maxiter: int = 200,
+    restart: int = 20,
+) -> KrylovResult:
+    """Block GMRES(m): all right-hand-side columns share ONE Krylov subspace
+    (block Arnoldi with blocked modified Gram-Schmidt + QR), so one operator
+    application on the [n, mu] block advances every column — HPDDM's block
+    methods, against :func:`gmres`, which iterates the columns jointly but
+    with independent subspaces.
+
+    ``maxiter`` counts BLOCK iterations (operator applications on the
+    block).  The small least-squares problem min‖H̄ Y − E₁S‖_F, at most
+    (m+1)·mu × m·mu, is solved again at every step for the stopping test.
+
+    One difference from the reference, which keeps everything in the working
+    dtype: the small problems (the block Hessenberg matrix, the Cholesky
+    factors, the least squares) are held in double precision whatever the
+    vectors' dtype.  In float64 / complex128 that changes nothing.  In
+    float32 / complex64 the single-precision least-squares residual cannot
+    be resolved much below 1e-6 of ‖M b‖, so at ``tol = 1e-6`` the stopping
+    test sat on rounding noise and the count of one solve changed from run
+    to run on the GPU (its atomics reorder the sums); in double it does not.
+    """
+    b = torch.as_tensor(b)
+    if b.ndim == 1:
+        raise ValueError("block_gmres needs a 2-D [n, mu] right-hand side")
+    b, x, _ = _rhs(b, x0)
+    n, mu = b.shape
+    M = M or _identity
+    Ax = A(x)  # first residual; also fixes the working dtype
+    dtype = torch.promote_types(b.dtype, Ax.dtype)
+    b = b.to(dtype)
+    x = x.to(dtype)
+    m = int(min(restart, maxiter))
+    dev = b.device
+    small = _wide(dtype)
+
+    bnorm = _norm_cols(M(b))
+    bnorm = torch.where(bnorm == 0, 1.0, bnorm)
+
+    it = 0
+    res_now = float("inf")
+    while it < maxiter and res_now > tol:
+        R0 = M(b - (Ax if Ax is not None else A(x))).to(dtype)
+        Ax = None
+        V0, S = _block_qr(R0)
+        V = torch.zeros((m + 1, n, mu), dtype=dtype, device=dev)
+        V[0] = V0
+        # block Hessenberg, flattened: block (i, j) at rows i·mu.., cols j·mu..
+        H = torch.zeros(((m + 1) * mu, m * mu), dtype=small, device=dev)
+        g = torch.zeros(((m + 1) * mu, mu), dtype=small, device=dev)
+        g[:mu] = S
+
+        j = 0
+        res = torch.full((mu,), float("inf"), dtype=bnorm.dtype, device=dev)
+        while j < m and it < maxiter and bool(torch.any(res > tol)):
+            W = M(A(V[j])).to(dtype)
+            for i in range(j + 1):  # blocked modified Gram-Schmidt
+                Hij = V[i].mH @ W
+                W = W - V[i] @ Hij
+                H[i * mu : (i + 1) * mu, j * mu : (j + 1) * mu] += Hij
+            Q, Rj = _block_qr(W)
+            H[(j + 1) * mu : (j + 2) * mu, j * mu : (j + 1) * mu] = Rj
+            V[j + 1] = Q
+            it += 1
+            j += 1
+            _, r = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
+            res = r.to(bnorm.dtype) / bnorm
+
+        Y, _ = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
+        x = x + torch.einsum("jnp,jpq->nq", V[:j], Y.view(j, mu, mu).to(dtype))
+        res_now = float(torch.max(_norm_cols(M(b - A(x))) / bnorm))
+
+    tnorm = _norm_cols(b)
+    tnorm = torch.where(tnorm == 0, 1.0, tnorm)
+    true_res = float(torch.max(_norm_cols(b - A(x)) / tnorm))
+    return KrylovResult(x, it, true_res, res_now <= tol)

@@ -214,16 +214,18 @@ def test_copy_diagonal_user_refuses_block_row():
 
 
 def test_matvec_routes_by_dtype(pairs, spies):
-    """Complex products take the gather path (no wrapper call) and agree with
-    the real products on the real and imaginary parts; a float64 input
-    against float32 blocks calls the wrappers on float64 copies."""
+    """A complex x against real blocks calls the real wrappers on x viewed as
+    real columns (one call per term, float64) and agrees with the real
+    products on the real and imaginary parts; a float64 input against
+    float32 blocks calls the wrappers on float64 copies."""
     _, Ht, _ = pairs["S"]
     rng = np.random.RandomState(9)
     xr, xi = rng.randn(N, 2), rng.randn(N, 2)
     yr, yi = matvec(Ht, torch.as_tensor(xr)), matvec(Ht, torch.as_tensor(xi))
     spies.clear()
     yc = matvec(Ht, torch.as_tensor(xr + 1j * xi))
-    assert spies == []
+    assert len(spies) == _terms(Ht) and {d for _, d in spies} == {torch.float64}
+    spies.clear()
     np.testing.assert_allclose(yc.numpy(), (yr + 1j * yi).numpy(), rtol=1e-12, atol=1e-12)
     H32 = hmatrix_from_numpy({**hmatrix_to_numpy(pairs["S"][0]), "dense_buckets": [
         {**b, "data": b["data"].astype(np.float32)} for b in hmatrix_to_numpy(pairs["S"][0])["dense_buckets"]],
@@ -243,14 +245,16 @@ def test_wrappers_refuse(what):
         with pytest.raises(ValueError, match="unsupported device"):
             dense_bucket_matvec(data.to("meta"), off.to("meta"), off.to("meta"),
                                 x.to("meta"), False, 16)
-    elif what == "complex":
+    elif what == "complex":  # complex blocks need an x of their own dtype
         with pytest.raises(TypeError):
-            dense_bucket_matvec(data.to(torch.complex64), off, off, x.to(torch.complex64),
-                                False, 16)
+            dense_bucket_matvec(data.to(torch.complex64), off, off, x, False, 16)
         with pytest.raises(TypeError):
             lr_bucket_matvec(torch.zeros((nb, bm, 2), dtype=torch.complex128),
                              torch.zeros((nb, 2, bn), dtype=torch.complex128), off, off,
-                             x.to(torch.complex128), True, 16)
+                             x.to(torch.complex64), True, 16)
+        with pytest.raises(TypeError):
+            dense_bucket_matvec(data.half(), off, off, x.half(),
+                                False, 16)
     else:  # blocks and x of different dtypes, and mismatched shapes
         with pytest.raises(TypeError):
             dense_bucket_matvec(data.double(), off, off, x, False, 16)

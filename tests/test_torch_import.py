@@ -1,6 +1,8 @@
 """The PyTorch port imports without JAX and without the JAX package."""
 
+import ast
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -35,6 +37,8 @@ SLICE = [
     "htool_tpu_torch.utils.logger",
     "htool_tpu_torch.utils.options",
     "htool_tpu_torch.testing.problems",
+    "htool_tpu_torch.testing.geometry",
+    "htool_tpu_torch.testing.kernels",
 ]
 
 
@@ -61,6 +65,38 @@ def test_port_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_slice_lists_every_module_of_the_port():
+    """SLICE, which the subprocess imports with jax blocked, misses no module."""
+    import htool_tpu_torch
+
+    found = {m.name for m in pkgutil.walk_packages(htool_tpu_torch.__path__, "htool_tpu_torch.")
+             if not m.ispkg}
+    assert found <= set(SLICE), sorted(found - set(SLICE))
+
+
+def test_no_source_of_the_port_imports_jax():
+    """No import statement of the port's package or of chip_smoke.py, at any
+    depth (function bodies included), names jax or the JAX package."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "htool_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    assert len(files) > 25
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, ROOT), m) for m in mods
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "htool_tpu")]
+    assert not bad, bad
+
+
 def test_port_exports_slice_names():
     import htool_tpu
     import htool_tpu_torch
@@ -71,12 +107,23 @@ def test_port_exports_slice_names():
         "HMatrix", "DenseBucket", "LowRankBucket", "HMatrixBuilder", "build_hmatrix",
         "assemble_from_plan", "batched_partial_aca", "matvec", "matvec_user", "matmat",
         "matmat_user", "to_dense", "hmatrix_info", "print_hmatrix_information",
-        "save_hmatrix", "load_hmatrix",
+        "save_hmatrix", "load_hmatrix", "hmatrix_from_dense",
     }
     assert slice_names <= set(htool_tpu.__all__)
     assert slice_names <= set(htool_tpu_torch.__all__)
     for name in slice_names:
         assert hasattr(htool_tpu_torch, name), name
+    # block GMRES, the subset generator, the complex plans
+    import htool_tpu.generator as gj
+    import htool_tpu.ops.tiled_matvec as oj
+    import htool_tpu.solvers.krylov as kj
+    import htool_tpu_torch.generator as gt
+    import htool_tpu_torch.ops.tiled_matvec as ot
+    import htool_tpu_torch.solvers.krylov as kt
+
+    for mj, mt, name in ((kj, kt, "block_gmres"), (gj, gt, "SubsetGenerator"),
+                         (oj, ot, "build_tile_plan_complex")):
+        assert hasattr(mj, name) and hasattr(mt, name), name
     # the subpackages' surface of the second slice
     import htool_tpu.hmatrix as hj
     import htool_tpu.testing as tj

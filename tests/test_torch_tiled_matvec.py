@@ -254,9 +254,9 @@ def test_matvec_wider_dtype_runs_planned_terms(pair32, pair64_sym, monkeypatch, 
     prepare_tiled_matvec(Ht, tile_rows=128)
     seen = []
 
-    def spy(plan, x_pad, out=None):
+    def spy(plan, x_pad, out=None, conj=False):
         seen.append((plan.dtype, x_pad.dtype))
-        return tiled_bucket_matvec(plan, x_pad, out=out)
+        return tiled_bucket_matvec(plan, x_pad, out=out, conj=conj)
 
     monkeypatch.setattr(linalg, "tiled_bucket_matvec", spy)
     try:
