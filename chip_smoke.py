@@ -10,7 +10,8 @@ Phases (each prints one JSON line):
 
 1. device — the card, and ``nvidia-smi``'s name and power limit line;
 2. build — the CUDA kernels are compiled from ``htool_tpu_torch/csrc`` for
-   float32, float64, complex64 and complex128;
+   float32, float64, complex64 and complex128; then the device rule: an
+   H-matrix built from NumPy points with no ``device`` must lie on the card;
 3. main path — sphere → cluster tree → H-matrix (f32, Laplace kernel, leaf
    256, ε = 1e-3, η = 10) → tiled plans → one-level RAS (64 subdomains,
    overlap 0.02, dense local solves) → restarted GMRES(60) to 1e-6, twice,
@@ -20,10 +21,13 @@ Phases (each prints one JSON line):
    generator rows; assembly and the Schwarz set-up are timed again warm;
 4. kernel vs plain — every bucket term of that H-matrix, both
    orientations, k = 1 and 8, f32 and f64, against the plain PyTorch
-   version on the same CUDA tensors;
+   version on the same CUDA tensors; every low-rank bucket through its
+   one-launch plan and through its split two-stage plan, both timed;
 5. kernel edges — the same comparison on random buckets with shapes the
    flagship does not reach: ranks above 64, non-square and 6272-wide
-   blocks, k = 2, 3, 5 and 11;
+   blocks, odd widths with rank 99 (no 16-byte alignment: the element-wise
+   copy path), rank 1, a bucket of one 6272 x 6272 block, k = 1, 2, 3, 5, 8
+   and 11;
 6. profile — ``torch.profiler`` windows over the
    warm solve, 20 products at k = 1 and at k = 8, a warm assembly and a warm
    Schwarz set-up.  Device busy time is the union of the kernel, memcpy and
@@ -37,9 +41,9 @@ Phases (each prints one JSON line):
    generator rows; products timed with the kernels and with their plain
    versions;
 8. unplanned kernels vs plain — every bucket term of that H-matrix and of
-   one block row, both orientations, k = 1 and 8, f32 and f64, and random
-   buckets of edge shapes (rank 96, 6272×2080 low-rank and 416×1568 dense
-   blocks, k = 2, 3, 5, 11);
+   one block row, both orientations, k = 1 and 8, f32 and f64, every
+   low-rank term through the one-launch and the two-stage kernel, and the
+   random buckets of phase 5's edge shapes with root offsets;
 9. compressors — full ACA, SVD and partial ACA with SVD recompression at
    ``--compress-n`` points (10,000), each checked against generator rows;
 10. profile — 20 unplanned products at k = 8;
@@ -60,12 +64,14 @@ Phases (each prints one JSON line):
     H-matrices, all four of B, Bᵀ, conj(B), Bᴴ, k = 1 and 8, complex64 and
     complex128, the edge shapes of phases 5 and 8, and a real H-matrix on a
     complex x (the real kernels on x viewed as 2k real columns);
-14. profile — 20 complex products at k = 8.
+14. profile — 20 complex products at k = 8;
+15. per-call floor — what one wrapper call on a bucket of one tiny block
+    costs, on the host clock over 1,000 calls and between CUDA events.
 
 The ``kernels`` line before the last lists every entry point (three kernels
 × float32, float64, complex64, complex128) with its launches on the main
-paths, its time summed over the main path's terms at k = 8 beside the plain
-version's, its bound (bytes moved once over 3.35 TB/s, or operations over
+paths (also split by k), its time summed over the main path's terms at
+k = 8 (and, under ``k1``, at k = 1) beside the plain version's, its bound (bytes moved once over 3.35 TB/s, or operations over
 the peak rate of the type, whichever is larger) and, as the library
 yardstick, ``torch.bmm`` on windows gathered beforehand (gather and
 scatter excluded: no single PyTorch call computes a bucket term).
@@ -178,8 +184,11 @@ def main(argv=None) -> int:
         lr_bucket_matvec,
         lr_bucket_matvec_reference,
     )
+    from htool_tpu_torch.ops.cut import lr_split_wanted
     from htool_tpu_torch.ops.tiled_matvec import (
+        SplitPlan,
         build_tile_plan,
+        build_tile_plan_lr_split,
         tiled_bucket_matvec,
         tiled_bucket_matvec_reference,
     )
@@ -200,16 +209,26 @@ def main(argv=None) -> int:
     # just before a main path is driven and read just after
     path_launches: dict = {}
 
+    path_launches_k: dict = {}  # the same, split by the k of the launch
+    path_cuda_launches: dict = {}  # CUDA launches behind them (two for a two-stage term)
+
     def reset_counts():
         for w in wrappers:
             w.launches = 0
+            w.cuda_launches = 0
             w.launches_by_dtype.clear()
+            w.launches_by_k.clear()
         matvec.products = 0
 
     def collect_launches():
         for w in wrappers:
             for dt, c in w.launches_by_dtype.items():
                 path_launches[(w.__name__, dt)] = path_launches.get((w.__name__, dt), 0) + c
+            for (dt, k), c in w.launches_by_k.items():
+                by_k = path_launches_k.setdefault((w.__name__, dt), {})
+                by_k[k] = by_k.get(k, 0) + c
+            path_cuda_launches[w.__name__] = (path_cuda_launches.get(w.__name__, 0)
+                                              + w.cuda_launches)
 
     # per entry point, over the main path's terms at k = 8: time of the kernel,
     # of its plain version and of torch.bmm on windows gathered beforehand,
@@ -225,7 +244,8 @@ def main(argv=None) -> int:
 
     def stat(wrapper, dtype):
         return stats.setdefault((wrapper.__name__, dtype), dict(
-            ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0, max_abs_err=0.0, terms=0))
+            ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0, max_abs_err=0.0, terms=0,
+            k1=dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0, terms=0)))
 
     def event_ms(fn, reps=3):
         fn()
@@ -237,9 +257,11 @@ def main(argv=None) -> int:
         return ev0.elapsed_time(ev1) / reps
 
     def account(wrapper, blocks, x, y_rows, in_off, in_w, trans, conj, ms, plain_ms):
-        """Add one main-path term at k = 8 to its entry point's sums."""
+        """Add one main-path term at k = 8 or k = 1 to its entry point's sums."""
         st = stat(wrapper, x.dtype)
         k, item = x.shape[1], x.element_size()
+        if k == 1:
+            st = st["k1"]
         st["terms"] += 1
         st["ms"] += ms
         st["plain_ms"] += plain_ms
@@ -272,6 +294,28 @@ def main(argv=None) -> int:
     emit(dict(phase="build", seconds=build_info["seconds"], library=build_info["library"],
               ptxas=[l.strip() for l in build_info["ptxas"].splitlines()
                      if "registers" in l or "spill" in l]))
+
+    # ---------------- 2b. the device rule ----------------
+    # NumPy points and no ``device``: the quick start must land on the card
+    pts0 = create_sphere(2000, seed=args.seed)
+    gen0 = ht.KernelGenerator(laplace_kernel_symmetric, pts0, pts0)
+    H0 = ht.build_hmatrix(gen0, ht.build_cluster_tree(pts0, max_leaf_size=64), epsilon=1e-3,
+                          eta=10.0)
+    reset_counts()
+    y0 = H0 @ np.random.RandomState(args.seed).randn(2000)
+    A0 = gen0.block(torch.arange(2000, device=dev), torch.arange(2000, device=dev)).double()
+    x0 = torch.as_tensor(np.random.RandomState(args.seed).randn(2000), device=dev)
+    err0 = float(torch.linalg.norm(y0 - A0 @ x0) / torch.linalg.norm(A0 @ x0))
+    launched0 = dense_bucket_matvec.launches + lr_bucket_matvec.launches
+    emit(dict(phase="device_default", generator_device=str(gen0.device),
+              hmatrix_device=str(H0.device), product_device=str(y0.device),
+              kernel_launches=launched0, rel_error=err0))
+    require(gen0.device.type == "cuda" and H0.device.type == "cuda" and y0.device.type == "cuda"
+            and all(b.data.is_cuda for b in H0.dense_buckets)
+            and all(b.U.is_cuda and b.V.is_cuda for b in H0.lr_buckets),
+            "NumPy input with no device did not land on the GPU")
+    require(launched0 > 0 and err0 < 1e-3, f"device rule: launches {launched0}, rel {err0:.3e}")
+    del H0, gen0, A0, y0, x0
 
     # ---------------- 3. main path ----------------
     n, P, eps, tol = args.n, 64, 1e-3, 1e-6
@@ -325,6 +369,7 @@ def main(argv=None) -> int:
     sync()
 
     launches = tiled_bucket_matvec.launches
+    cuda_launches = tiled_bucket_matvec.cuda_launches
     products = matvec.products
     require(dense_bucket_matvec.launches == lr_bucket_matvec.launches == 0,
             "a planned product launched an unplanned kernel")
@@ -391,7 +436,16 @@ def main(argv=None) -> int:
         matvec_k8_s=t_mv, matvec_k8_plain_s=t_mv_plain, matvec_kernel_vs_plain_rel=mv_vs_plain,
         matvec_rel_error=mv_rel, max_memory_allocated_bytes=peak,
         launches=launches, products=products, bucket_terms=terms,
+        cuda_launches=cuda_launches,
+        split_plans=sum(isinstance(b.plan_t, SplitPlan) for b in H.lr_buckets),
     ))
+    n_split = sum(isinstance(b.plan_t, SplitPlan) for b in H.lr_buckets)
+    require(all(isinstance(b.plan_t, SplitPlan) == lr_split_wanted(
+                *b.block_shape, b.rank_padded, b.U.element_size()) for b in H.lr_buckets),
+            "prepare_tiled_matvec: a low-rank bucket's plan is not the rule's")
+    require(cuda_launches == (terms + n_split) * products,
+            f"CUDA launches {cuda_launches} != (terms {terms} + split plans {n_split}) x "
+            f"products {products}")
     require(all(bool(torch.isfinite(t).all()) for t in (x, y, yu)), "non-finite output")
     require(tuple(x.shape) == (n,) and tuple(y.shape) == (n, 8), "output shapes")
     require(mv_rel < eps, f"matvec rel error {mv_rel:.3e} >= eps {eps}")
@@ -411,12 +465,14 @@ def main(argv=None) -> int:
     m_pad = H.shape[0] + linalg._pad_in_of(H)
     rows, worst = [], {}
 
-    def compare(plan, xp, what, conj=False, main=True):
-        """Kernel vs plain version on the same CUDA tensors: the relative
-        error; a main-path term's largest absolute error goes to its entry
-        point's row."""
+    def compare(plan, xp, what, conj=False, main=True, ref_plan=None):
+        """Kernel vs plain version on the same CUDA tensors (the plain
+        version of ``ref_plan`` when given: a split plan is also held against
+        the one-launch plan's plain version): the relative error; a
+        main-path term's largest absolute error goes to its entry point's
+        row."""
         yk = tiled_bucket_matvec(plan, xp, conj=conj)
-        yr = tiled_bucket_matvec_reference(plan, xp, conj=conj)
+        yr = tiled_bucket_matvec_reference(ref_plan or plan, xp, conj=conj)
         sync()
         require(bool(torch.isfinite(yk).all()), f"non-finite kernel output {what}")
         rel = float(torch.linalg.norm(yk - yr) / torch.linalg.norm(yr).clamp_min(1e-300))
@@ -426,18 +482,33 @@ def main(argv=None) -> int:
             st["max_abs_err"] = max(st["max_abs_err"], float((yk - yr).abs().max()))
         return rel
 
-    def time_tiled(plan, xp, conj=False):
-        """(kernel ms, plain ms) of one planned term; at k = 8 the term is
-        added to its entry point's sums."""
-        tk = event_ms(lambda: tiled_bucket_matvec(plan, xp, conj=conj))
-        tp = event_ms(lambda: tiled_bucket_matvec_reference(plan, xp, conj=conj))
-        if xp.shape[1] == 8:
-            blocks = [plan.data] if plan.kind == "dense" else [plan.U, plan.V]
-            sel = plan.blk >= 0
-            order = torch.argsort(plan.blk[sel])  # windows in the order of the blocks
-            account(tiled_bucket_matvec, blocks, xp, plan.out_len, plan.in_off[sel][order],
-                    plan.in_w, plan.trans, conj, tk, tp)
-        return tk, tp
+    def routes_of(bucket, side, out_len):
+        """Every plan a bucket term can run through: one route for a dense
+        bucket, the one-launch and the split plan for a low-rank one; and
+        the name of the route prepare_tiled_matvec picks."""
+        if isinstance(bucket, ht.DenseBucket):
+            return {"dense": build_tile_plan(bucket, side, out_len)}, "dense"
+        picked = "split" if lr_split_wanted(*bucket.block_shape, bucket.rank_padded,
+                                            bucket.U.element_size()) else "one_launch"
+        return {"one_launch": build_tile_plan(bucket, side, out_len),
+                "split": build_tile_plan_lr_split(bucket, side, out_len)}, picked
+
+    def time_tiled(routes, picked, bucket, side, xp, conj=False):
+        """ms of every route of one planned term and of the plain version;
+        the picked route's time goes to its entry point's sums (k = 8 and
+        k = 1)."""
+        ms = {name: event_ms(lambda pl=pl: tiled_bucket_matvec(pl, xp, conj=conj))
+              for name, pl in routes.items()}
+        first = next(iter(routes.values()))
+        tp = event_ms(lambda: tiled_bucket_matvec_reference(first, xp, conj=conj))
+        if xp.shape[1] in (1, 8):
+            is_dense = isinstance(bucket, ht.DenseBucket)
+            blocks = [bucket.data] if is_dense else [bucket.U, bucket.V]
+            bm, bn = bucket.block_shape
+            account(tiled_bucket_matvec, blocks, xp, first.out_len,
+                    bucket.s_off if side == "t" else bucket.t_off, bn if side == "t" else bm,
+                    side == "s", conj, ms[picked], tp)
+        return ms, tp
 
     total = {(k, "kernel"): 0.0 for k in (1, 8)} | {(k, "plain"): 0.0 for k in (1, 8)}
     for bi, bucket in enumerate(buckets):
@@ -448,27 +519,29 @@ def main(argv=None) -> int:
                 bk = (dataclasses.replace(bucket, data=bucket.data.double()) if is_dense else
                       dataclasses.replace(bucket, U=bucket.U.double(), V=bucket.V.double()))
             for side in ("t", "s"):
-                plan = getattr(bucket, f"plan_{side}") if dtype == torch.float32 else \
-                    build_tile_plan(bk, side, m_pad)
+                routes, picked = routes_of(bk, side, m_pad)
+                if dtype == torch.float32:  # the main path's own plan for the picked route
+                    routes[picked] = getattr(bucket, f"plan_{side}")
+                ref_plan = next(iter(routes.values()))
                 for k in (1, 8):
                     xp = torch.randn((m_pad, k), dtype=dtype, device=dev)
-                    key = (str(dtype), side, k, "dense" if is_dense else "lr")
-                    rel = compare(plan, xp, f"bucket {bi} {key}")
-                    worst[key] = max(worst.get(key, 0.0), rel)
-                    if side == "t" and (dtype == torch.float32 or k == 8):
-                        # the main path's orientation (float64: the k = 8 row only)
-                        tk, tp = time_tiled(plan, xp)
+                    for route, plan in routes.items():
+                        key = (str(dtype), side, k, route)
+                        rel = compare(plan, xp, f"bucket {bi} {key}", ref_plan=ref_plan,
+                                      main=route == picked)
+                        worst[key] = max(worst.get(key, 0.0), rel)
+                    if side == "t":  # the main path's orientation
+                        ms, tp = time_tiled(routes, picked, bk, side, xp)
                         if dtype == torch.float32:
-                            total[(k, "kernel")] += tk
+                            total[(k, "kernel")] += ms[picked]
                             total[(k, "plain")] += tp
-                            rows.append(dict(
-                                bucket=bi, kind="dense" if is_dense else "lr",
-                                n_blocks=bucket.n_blocks, block_shape=bucket.block_shape,
-                                rank=None if is_dense else bucket.rank_padded,
-                                n_tiles=plan.n_tiles, T=plan.T, E=plan.E, k=k,
-                                kernel_ms=tk, plain_ms=tp,
-                            ))
-            del bk
+                        rows.append(dict(
+                            bucket=bi, kind="dense" if is_dense else "lr", dtype=str(dtype),
+                            n_blocks=bucket.n_blocks, block_shape=bucket.block_shape,
+                            rank=None if is_dense else bucket.rank_padded, k=k,
+                            route=picked, route_ms=ms, kernel_ms=ms[picked], plain_ms=tp,
+                        ))
+            del bk, routes
     max_abs_err = stats[("tiled_bucket_matvec", torch.float32)]["max_abs_err"]
     emit(dict(phase="kernel_vs_plain", tolerance_rel=dict(float32=1e-5, float64=1e-12),
               worst_rel={"/".join(map(str, k)): v for k, v in sorted(worst.items())},
@@ -490,7 +563,15 @@ def main(argv=None) -> int:
         return torch.randn(shape, dtype=dtype, device=dev, generator=gen_r)
 
     L = 20_000
-    EDGE_SHAPES = (("dense", (416, 1568, 0, 96)), ("lr", (6272, 2080, 96, 48)))
+    # (kind, (bm, bn, r, nb)): wide and non-square blocks, a rank above 64, odd
+    # widths with rank 99 (float32 rows of 396 bytes: no 16-byte alignment, the
+    # element-wise copy path), rank 1, and a bucket of one 6272 x 6272 block
+    EDGE_SHAPES = (("dense", (416, 1568, 0, 96)), ("dense", (37, 101, 0, 11)),
+                   ("lr", (6272, 2080, 96, 48)), ("lr", (1001, 777, 99, 6)),
+                   ("lr", (333, 517, 1, 9)), ("lr", (6272, 6272, 8, 1)))
+    EDGE_KS = (1, 2, 3, 5, 8, 11)
+    edge_shapes = [dict(kind=kd, bm=a, bn=b, rank=r, n_blocks=nb)
+                   for kd, (a, b, r, nb) in EDGE_SHAPES]
 
     def tiled_edges(dtypes, conjs=(False,)):
         worst_of = {}
@@ -503,17 +584,20 @@ def main(argv=None) -> int:
                           else ht.LowRankBucket(U=randn(nb, bm, r, dtype=dtype),
                                                 V=randn(nb, r, bn, dtype=dtype), **offs))
                 for side in ("t", "s"):
-                    plan = build_tile_plan(bucket, side, L)
+                    routes, _ = routes_of(bucket, side, L)
+                    ref_plan = next(iter(routes.values()))
                     for conj in conjs:
-                        for k in (2, 3, 5, 11):
+                        for k in EDGE_KS:
                             xp = randn(L, k, dtype=dtype)
-                            key = f"{dtype}/{side}/conj{int(conj)}/{k}/{bkind}"
-                            worst_of[key] = compare(plan, xp, f"{key} {bm}x{bn} r={r}",
-                                                    conj=conj, main=False)
-                del bucket
+                            for route, plan in routes.items():
+                                key = f"{dtype}/{side}/conj{int(conj)}/{route}/{bm}x{bn}r{r}"
+                                worst_of[key] = max(worst_of.get(key, 0.0), compare(
+                                    plan, xp, f"{key} k={k}", conj=conj, main=False,
+                                    ref_plan=ref_plan))
+                del bucket, routes
         return worst_of
 
-    emit(dict(phase="kernel_edges", shapes=dict(dense=[416, 1568], lr=[6272, 2080, 96]),
+    emit(dict(phase="kernel_edges", shapes=edge_shapes, ks=EDGE_KS,
               worst_rel=tiled_edges((torch.float32, torch.float64))))
 
     # ---------------- 6. profile ----------------
@@ -664,32 +748,44 @@ def main(argv=None) -> int:
                     conj=h.dtype.is_complex and mode in ("C", "conj"), out_len=out_len,
                     in_root=in_root, out_root=out_root)
 
-    def run_term(fn, blocks, xp, kw):
+    def run_term(fn, blocks, xp, kw, split=None):
+        extra = {} if split is None else dict(split=split)  # lr_bucket_matvec's route
         return fn(*blocks, kw["in_off"], kw["out_off"], xp, kw["trans"], kw["out_len"],
-                  in_root=kw["in_root"], out_root=kw["out_root"], conj=kw.get("conj", False))
+                  in_root=kw["in_root"], out_root=kw["out_root"], conj=kw.get("conj", False),
+                  **extra)
 
     def compare_term(kernel, plain, blocks, xp, kw, what, main=True):
-        yk = run_term(kernel, blocks, xp, kw)
+        """Kernel vs plain version of one unplanned term; a low-rank term
+        also through its one-launch and its two-stage kernel, whichever the
+        wrapper's rule picks.  Returns the worst relative error."""
         yr = run_term(plain, blocks, xp, kw)
-        sync()
-        require(bool(torch.isfinite(yk).all()), f"non-finite kernel output {what}")
-        r = float(torch.linalg.norm(yk - yr) / torch.linalg.norm(yr).clamp_min(1e-300))
-        require(r <= tol_rel[xp.dtype], f"{what}: rel {r:.3e}")
-        if main:
-            st = stat(kernel, xp.dtype)
-            st["max_abs_err"] = max(st["max_abs_err"], float((yk - yr).abs().max()))
-        return r
+        worst_r = 0.0
+        for split in ((None, False, True) if kernel is lr_bucket_matvec else (None,)):
+            yk = run_term(kernel, blocks, xp, kw, split)
+            sync()
+            require(bool(torch.isfinite(yk).all()), f"non-finite kernel output {what}")
+            r = float(torch.linalg.norm(yk - yr) / torch.linalg.norm(yr).clamp_min(1e-300))
+            require(r <= tol_rel[xp.dtype], f"{what} split={split}: rel {r:.3e}")
+            worst_r = max(worst_r, r)
+            if main and split is None:
+                st = stat(kernel, xp.dtype)
+                st["max_abs_err"] = max(st["max_abs_err"], float((yk - yr).abs().max()))
+        return worst_r
 
     def time_term(kernel, plain, blocks, xp, kw):
-        """(kernel ms, plain ms) of one unplanned term; at k = 8 the term is
-        added to its entry point's sums."""
+        """(kernel ms, plain ms, ms by route) of one unplanned term; at k = 8
+        and k = 1 the term is added to its entry point's sums."""
         tk = event_ms(lambda: run_term(kernel, blocks, xp, kw))
         tp = event_ms(lambda: run_term(plain, blocks, xp, kw))
-        if xp.shape[1] == 8:
+        by_route = {}
+        if kernel is lr_bucket_matvec:
+            by_route = {name: event_ms(lambda sp=sp: run_term(kernel, blocks, xp, kw, sp))
+                        for name, sp in (("one_launch", False), ("two_stage", True))}
+        if xp.shape[1] in (1, 8):
             bm, bn = blocks[0].shape[1], blocks[-1].shape[2]
             account(kernel, blocks, xp, kw["out_len"], kw["in_off"] - kw["in_root"],
                     bm if kw["trans"] else bn, kw["trans"], kw.get("conj", False), tk, tp)
-        return tk, tp
+        return tk, tp, by_route
 
     u_worst = {}
     u_total = {(bkind, k, w): 0.0 for bkind in ("dense", "lr") for k in (1, 8)
@@ -712,17 +808,17 @@ def main(argv=None) -> int:
                         r = compare_term(kernel, plain, blocks, xp, kw,
                                          f"{name} op {op} bucket {bi} {key}")
                         u_worst[key] = max(u_worst.get(key, 0.0), r)
-                        # the terms of H @ x (float64: the k = 8 row only)
-                        if name == "H" and op == "N" and (dtype == torch.float32 or k == 8):
-                            tk, tp = time_term(kernel, plain, blocks, xp, kw)
+                        if name == "H" and op == "N":  # the terms of H @ x
+                            tk, tp, by_route = time_term(kernel, plain, blocks, xp, kw)
                             if dtype == torch.float32:
                                 u_total[(bkind, k, "kernel")] += tk
                                 u_total[(bkind, k, "plain")] += tp
-                                u_rows.append(dict(
-                                    bucket=bi, kind=bkind, n_blocks=bucket.n_blocks,
-                                    block_shape=bucket.block_shape, mirror=bool(bucket.mirror),
-                                    rank=None if is_dense else bucket.rank_padded,
-                                    trans=bool(kw["trans"]), k=k, kernel_ms=tk, plain_ms=tp))
+                            u_rows.append(dict(
+                                bucket=bi, kind=bkind, dtype=str(dtype), n_blocks=bucket.n_blocks,
+                                block_shape=bucket.block_shape, mirror=bool(bucket.mirror),
+                                rank=None if is_dense else bucket.rank_padded,
+                                trans=bool(kw["trans"]), k=k, kernel_ms=tk, plain_ms=tp,
+                                route_ms=by_route))
                     del blocks
     u_abs = {"dense": stats[("dense_bucket_matvec", torch.float32)]["max_abs_err"],
              "lr": stats[("lr_bucket_matvec", torch.float32)]["max_abs_err"]}
@@ -745,11 +841,11 @@ def main(argv=None) -> int:
                                                            generator=gen_r),
                               trans=trans, out_len=L, in_root=root, out_root=root)
                     for conj in conjs:
-                        for k in (2, 3, 5, 11):
-                            key = f"{dtype}/trans{int(trans)}/conj{int(conj)}/k{k}/{bkind}"
-                            worst_of[key] = compare_term(
+                        for k in EDGE_KS:
+                            key = f"{dtype}/trans{int(trans)}/conj{int(conj)}/{bm}x{bn}r{r}"
+                            worst_of[key] = max(worst_of.get(key, 0.0), compare_term(
                                 kernel, plain, blocks, randn(L, k, dtype=dtype),
-                                dict(kw, conj=conj), f"edge {key} {bm}x{bn} r={r}", main=False)
+                                dict(kw, conj=conj), f"edge {key} k={k}", main=False))
                 del blocks
         return worst_of
 
@@ -760,7 +856,7 @@ def main(argv=None) -> int:
               terms_k1_plain_ms={kd: u_total[(kd, 1, "plain")] for kd in ("dense", "lr")},
               terms_k8_ms={kd: u_total[(kd, 8, "kernel")] for kd in ("dense", "lr")},
               terms_k8_plain_ms={kd: u_total[(kd, 8, "plain")] for kd in ("dense", "lr")},
-              edge_shapes=dict(dense=[416, 1568], lr=[6272, 2080, 96]), edge_worst_rel=u_edge))
+              edge_shapes=edge_shapes, edge_ks=EDGE_KS, edge_worst_rel=u_edge))
     if args.out:
         with open(os.path.join(args.out, "chip_smoke_unplanned_terms.json"), "w") as f:
             json.dump(dict(nvidia_smi=smi, n=n, rows=u_rows), f, indent=1)
@@ -1026,24 +1122,28 @@ def main(argv=None) -> int:
                 bk = (dataclasses.replace(bucket, data=bucket.data.to(dtype)) if is_dense else
                       dataclasses.replace(bucket, U=bucket.U.to(dtype), V=bucket.V.to(dtype)))
             for side in ("t", "s"):
-                plan = getattr(bucket, f"plan_{side}") if dtype == torch.complex64 else \
-                    tiled_ops.build_tile_plan_complex(bk, side, m_pad_c)
+                routes, picked = routes_of(bk, side, m_pad_c)
+                if dtype == torch.complex64:  # the main path's own plan for the picked route
+                    routes[picked] = getattr(bucket, f"plan_{side}")
+                ref_plan = next(iter(routes.values()))
                 for conj in (False, True):
                     for k in (1, 8):
                         xp = crandn(m_pad_c, k, dtype=dtype)
-                        key = (f"tiled/{dtype}/{side}/conj{int(conj)}/k{k}/"
-                               f"{'dense' if is_dense else 'lr'}")
-                        c_worst[key] = max(c_worst.get(key, 0.0),
-                                           compare(plan, xp, f"bucket {bi} {key}", conj=conj))
-                        if side == "t" and not conj and (k == 8 or dtype == torch.complex64):
-                            tk, tp = time_tiled(plan, xp)
+                        for route, plan in routes.items():
+                            key = f"tiled/{dtype}/{side}/conj{int(conj)}/k{k}/{route}"
+                            c_worst[key] = max(c_worst.get(key, 0.0), compare(
+                                plan, xp, f"bucket {bi} {key}", conj=conj, ref_plan=ref_plan,
+                                main=route == picked))
+                        if side == "t" and not conj:
+                            ms, tp = time_tiled(routes, picked, bk, side, xp)
                             c_rows.append(dict(
                                 path="complex_main_path", kernel="tiled", dtype=str(dtype),
                                 bucket=bi, kind="dense" if is_dense else "lr",
                                 n_blocks=bucket.n_blocks, block_shape=bucket.block_shape,
                                 rank=None if is_dense else bucket.rank_padded,
-                                trans=False, conj=False, k=k, kernel_ms=tk, plain_ms=tp))
-            del bk
+                                trans=False, conj=False, k=k, route=picked, route_ms=ms,
+                                kernel_ms=ms[picked], plain_ms=tp))
+            del bk, routes
     hh_timed = {(bi, kw["trans"], kw["conj"]) for bi, _, _, kw in terms_of(HH, "N")}
     pad_h = HH.shape[0] + linalg._pad_in_of(HH)
     for bi, bucket in enumerate(buckets_h):
@@ -1065,16 +1165,16 @@ def main(argv=None) -> int:
                                f"{'dense' if is_dense else 'lr'}")
                         c_worst[key] = max(c_worst.get(key, 0.0), compare_term(
                             kernel, plain, blocks, xp, kw, f"hermitian bucket {bi} {key}"))
-                        if (bi, trans, conj) in hh_timed and (k == 8
-                                                              or dtype == torch.complex64):
-                            tk, tp = time_term(kernel, plain, blocks, xp, kw)
+                        if (bi, trans, conj) in hh_timed:
+                            tk, tp, by_route = time_term(kernel, plain, blocks, xp, kw)
                             c_rows.append(dict(
                                 path="hermitian_unplanned_path", kernel="unplanned",
                                 dtype=str(dtype), bucket=bi,
                                 kind="dense" if is_dense else "lr", n_blocks=bucket.n_blocks,
                                 block_shape=bucket.block_shape, mirror=bool(bucket.mirror),
                                 rank=None if is_dense else bucket.rank_padded,
-                                trans=trans, conj=conj, k=k, kernel_ms=tk, plain_ms=tp))
+                                trans=trans, conj=conj, k=k, kernel_ms=tk, plain_ms=tp,
+                                route_ms=by_route))
             del blocks
     complex_dtypes = (torch.complex64, torch.complex128)
     c_edges = dict(tiled=tiled_edges(complex_dtypes, conjs=(False, True)),
@@ -1117,7 +1217,7 @@ def main(argv=None) -> int:
         b.plan_t = b.plan_s = None
     emit(dict(phase="complex_kernel_vs_plain",
               tolerance_rel=dict(complex64=1e-5, complex128=1e-12), worst_rel=c_worst,
-              edge_shapes=dict(dense=[416, 1568], lr=[6272, 2080, 96]), edge_worst_rel=c_edges,
+              edge_shapes=edge_shapes, edge_ks=EDGE_KS, edge_worst_rel=c_edges,
               real_hmatrix_on_complex_x=real_on_complex))
     require(all(v["rel_error"] < eps and v["kernel_vs_plain_rel"] < 1e-5
                 for v in real_on_complex.values()), f"real H on complex x {real_on_complex}")
@@ -1130,40 +1230,98 @@ def main(argv=None) -> int:
     emit(dict(phase="profile", **profile_window(
         "complex_matvec_k8_x20", lambda: [matvec(Hc, xc8c) for _ in range(iters)])))
 
+    # ---------------- 15. the per-call floor ----------------
+    # one wrapper call on a bucket of one tiny block: on the host clock over
+    # 1,000 calls (what the call costs the host) and between CUDA events (the
+    # rate at which such calls leave the device's queue)
+    tiny_d = ht.DenseBucket(data=randn(1, 8, 8, dtype=torch.float32),
+                            t_off=torch.zeros(1, dtype=torch.int64, device=dev),
+                            s_off=torch.full((1,), 8, dtype=torch.int64, device=dev))
+    tiny_l = ht.LowRankBucket(U=randn(1, 8, 4, dtype=torch.float32),
+                              V=randn(1, 4, 8, dtype=torch.float32),
+                              t_off=tiny_d.t_off, s_off=tiny_d.s_off)
+    x_t, y_t = randn(64, 1, dtype=torch.float32), torch.zeros((64, 1), device=dev)
+    floor_calls = {
+        "tiled_dense": lambda pl=build_tile_plan(tiny_d, "t", 64): tiled_bucket_matvec(
+            pl, x_t, out=y_t),
+        "tiled_lr_one_launch": lambda pl=build_tile_plan(tiny_l, "t", 64): tiled_bucket_matvec(
+            pl, x_t, out=y_t),
+        "tiled_lr_split": lambda pl=build_tile_plan_lr_split(tiny_l, "t", 64):
+            tiled_bucket_matvec(pl, x_t, out=y_t),
+        "unplanned_dense": lambda: dense_bucket_matvec(
+            tiny_d.data, tiny_d.s_off, tiny_d.t_off, x_t, False, 64, out=y_t),
+        "unplanned_lr_one_launch": lambda: lr_bucket_matvec(
+            tiny_l.U, tiny_l.V, tiny_l.s_off, tiny_l.t_off, x_t, False, 64, out=y_t, split=False),
+        "unplanned_lr_two_stage": lambda: lr_bucket_matvec(
+            tiny_l.U, tiny_l.V, tiny_l.s_off, tiny_l.t_off, x_t, False, 64, out=y_t, split=True),
+        "torch_add_": lambda: y_t.add_(1.0),
+    }
+    floor = {}
+    for name, fn in floor_calls.items():
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        host_us = 1e3 * (time.perf_counter() - t0)
+        sync()
+        floor[name] = dict(host_us_per_call=host_us, device_us_per_call=1e3 * event_ms(fn, 1000))
+    emit(dict(phase="per_call_floor", calls=1000, per_call=floor))
+    require(bool(torch.isfinite(y_t).all()), "per-call floor: non-finite output")
+
     # ---------------- the kernels line ----------------
+    stream_cu = "htool_tpu_torch/csrc/stream_matvec.cu"
     sources = {
-        "tiled_bucket_matvec": ("htool_tiled_matvec", "htool_tpu_torch/csrc/tiled_matvec.cu",
+        "tiled_bucket_matvec": ("htool_stream_matvec", stream_cu,
+                                [stream_cu, "htool_tpu_torch/csrc/tiled_matvec.cu",
+                                 "htool_tpu_torch/csrc/matvec_stream.cuh"],
                                 "htool_tpu/ops/tiled_matvec.py:585"),
         "dense_bucket_matvec": ("htool_dense_bucket_matvec",
                                 "htool_tpu_torch/csrc/bucket_matvec.cu",
+                                ["htool_tpu_torch/csrc/bucket_matvec.cu",
+                                 "htool_tpu_torch/csrc/matvec_block.cuh"],
                                 "htool_tpu/ops/bucket_matvec.py:179"),
-        "lr_bucket_matvec": ("htool_lr_bucket_matvec", "htool_tpu_torch/csrc/bucket_matvec.cu",
+        "lr_bucket_matvec": ("htool_lr_bucket_stream", "htool_tpu_torch/csrc/bucket_lr_stream.cu",
+                             ["htool_tpu_torch/csrc/bucket_lr_stream.cu",
+                              "htool_tpu_torch/csrc/bucket_matvec.cu",
+                              "htool_tpu_torch/csrc/matvec_stream.cuh"],
                              "htool_tpu/ops/bucket_matvec.py:258"),
     }
+
+    def bound_of(st, dt):
+        by_bytes = 1e3 * st["bytes"] / PEAK_BYTES_S
+        by_ops = 1e3 * st["flops"] / PEAK_FLOPS_S[dt]
+        return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
     kernel_rows = []
     for w in wrappers:
-        base, source, replaces = sources[w.__name__]
+        base, source, all_sources, replaces = sources[w.__name__]
         for dt in DTYPES:
             name = str(dt).removeprefix("torch.")
             st = stats.get((w.__name__, dt))
             n_launch = path_launches.get((w.__name__, dt), 0)
-            require(st is not None and st["terms"] > 0, f"{w.__name__} {name}: no term was timed")
+            require(st is not None and st["terms"] > 0 and st["k1"]["terms"] > 0,
+                    f"{w.__name__} {name}: no term was timed at k = 8 and k = 1")
             require(n_launch > 0, f"{w.__name__} {name}: not launched on a main path")
-            by_bytes = 1e3 * st["bytes"] / PEAK_BYTES_S
-            by_ops = 1e3 * st["flops"] / PEAK_FLOPS_S[dt]
+            bound_ms, bound_by = bound_of(st, dt)
+            k1_bound_ms, k1_bound_by = bound_of(st["k1"], dt)
             if dt.is_complex and w is tiled_bucket_matvec:
                 # the complex route of the same TPU kernel (apply_complex_plans)
                 replaces = "htool_tpu/ops/tiled_matvec.py:384"
+            by_k = path_launches_k.get((w.__name__, dt), {})
             kernel_rows.append(dict(
                 name=f"{w.__name__}[{name}]", entry_point=base + SUFFIX_OF[name], route="cuda",
-                source=source, replaces=replaces, launches=n_launch,
+                source=source, sources=all_sources, replaces=replaces, launches=n_launch,
+                launches_by_k={str(k): c for k, c in sorted(by_k.items())},
                 max_abs_err=st["max_abs_err"], ms=st["ms"], plain_ms=st["plain_ms"],
-                bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
-                library_ms=st["library_ms"],
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=st["library_ms"],
                 library_call="torch.bmm on windows gathered beforehand "
                              "(gather and scatter excluded)",
-                terms=st["terms"], k=8))
+                terms=st["terms"], k=8,
+                k1=dict(ms=st["k1"]["ms"], plain_ms=st["k1"]["plain_ms"], bound_ms=k1_bound_ms,
+                        bound_by=k1_bound_by, library_ms=st["k1"]["library_ms"],
+                        terms=st["k1"]["terms"])))
+    emit(dict(phase="cuda_launches_on_main_paths", by_wrapper=path_cuda_launches))
     emit({"kernels": kernel_rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -29,6 +29,7 @@ from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
 from .hmatrix.info import hmatrix_info, print_hmatrix_information
 from .hmatrix.linalg import matmat, matmat_user, matvec, matvec_user, to_dense
 from .hmatrix.output import load_hmatrix, save_hmatrix
+from .utils.device import get_default_device, set_default_device
 
 __version__ = "0.1.0"
 
@@ -58,4 +59,6 @@ __all__ = [
     "print_hmatrix_information",
     "save_hmatrix",
     "load_hmatrix",
+    "set_default_device",
+    "get_default_device",
 ]

@@ -12,6 +12,7 @@ import torch
 
 from .clustering.cluster_tree import ClusterTree
 from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
+from .utils.device import resolve_device
 
 __all__ = ["tree_from_numpy", "hmatrix_from_numpy"]
 
@@ -28,13 +29,14 @@ def tree_from_numpy(fields: dict) -> ClusterTree:
 
 
 def hmatrix_from_numpy(d: dict, device=None) -> HMatrix:
-    """Build an :class:`HMatrix` on ``device`` (default CPU) from a dict with
+    """Build an :class:`HMatrix` on ``device`` (default: the GPU, see
+    :mod:`.utils.device`) from a dict with
     ``shape``, ``symmetry``, ``UPLO``, ``t_root_off``, ``perm_t``,
     ``perm_s`` and the bucket lists ``dense_buckets`` (dicts with ``data``,
     ``t_off``, ``s_off``, ``t_sizes``, ``s_sizes``, ``mirror``) and
     ``lr_buckets`` (dicts with ``U``, ``V``, ``t_off``, ``s_off``,
     ``t_sizes``, ``s_sizes``, ``ranks``, ``mirror``)."""
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
 
     def t(a, dtype=None):
         return torch.as_tensor(np.array(a, copy=True), dtype=dtype, device=device)

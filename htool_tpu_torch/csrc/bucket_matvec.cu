@@ -1,4 +1,4 @@
-// Unplanned bucket matvec for NVIDIA Hopper (sm_90a).
+// Unplanned bucket matvec, one block per CTA, for NVIDIA Hopper (sm_90a).
 //
 // Replaces htool_tpu/ops/bucket_matvec.py::_dense_kernel and ::_lr_kernel
 // (the Pallas TPU kernels behind dense_bucket_matvec and lr_bucket_matvec).
@@ -28,11 +28,15 @@
 // most 64 rank rows), and adds into y in device memory with atomicAdd.  The
 // order of the additions, and so the rounding, varies from run to run.
 //
-// What bounds it: every block entry is read once per product for 2·KC flops,
-// so it is bound by device memory bandwidth (3.35 TB/s on the H100).  What
-// this simple design leaves on the table: no tensor cores (wgmma), no TMA or
-// cp.async pipelining, x windows read through L1, and one block per CTA
-// whatever its size.
+// What bounds it on the H100: every block entry is read once per product
+// for 2·KC (real) or 8·KC (complex) flops, so device memory bandwidth
+// (3.35 TB/s).  This one-block-per-CTA form reaches 44 - 66 % of that at
+// k = 1 and 16 - 34 % at k = 8 (entries go from device memory straight to
+// registers; one CTA streams a block alone whatever its size; a lane adds
+// its row's k sums to y one request at a time).  Low-rank terms therefore
+// go to the two-stage streaming kernel (bucket_lr_stream.cu) unless their
+// blocks are very small (ops/cut.py::lr_split_wanted); the dense terms
+// still run here, and their move to the streaming core is the next step.
 //
 // A block whose input or output window falls outside x or y stops the kernel
 // with a device fault (__trap) instead of reading or writing out of range;

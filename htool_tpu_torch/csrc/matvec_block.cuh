@@ -1,7 +1,16 @@
-// Block-level routines shared by the H-matrix product kernels for NVIDIA
-// Hopper (sm_90a): tiled_matvec.cu (planned bucket terms) and
-// bucket_matvec.cu (unplanned bucket terms).  Each applies one block of a
-// bucket to its input window and adds the result into its output window:
+// Scalar types and the one-block-per-CTA routines of the H-matrix product
+// kernels for NVIDIA Hopper (sm_90a).  The scalar overloads (cplx, mul_add,
+// conj_if, shfl_xor, atomic_add) serve every kernel; the block routines
+// (rowdot, colsum, apply_block) serve the one-launch kernels: tiled_matvec.cu
+// (planned low-rank terms of very small blocks; replaces
+// htool_tpu/ops/tiled_matvec.py::_tiled_kernel) and bucket_matvec.cu
+// (unplanned dense terms and such low-rank terms; replaces
+// htool_tpu/ops/bucket_matvec.py::_dense_kernel and ::_lr_kernel).  They read
+// block entries from device memory straight into registers, which bounds
+// them well under the card's 3.35 TB/s at k = 8 (few bytes in flight once the
+// sums take the registers); matvec_stream.cuh is the streaming redesign that
+// the other terms run through.  Each routine applies one block of a bucket
+// to its input window and adds the result into its output window:
 //
 //   y[0 : out_w, 0 : kc] += op(B) · x[0 : in_w, 0 : kc]
 //

@@ -1,45 +1,51 @@
-// Tiled bucket matvec for NVIDIA Hopper (sm_90a).
+// One-launch tiled bucket matvec for NVIDIA Hopper (sm_90a).
 //
 // Replaces htool_tpu/ops/tiled_matvec.py::_tiled_kernel (the Pallas TPU
-// kernel behind tiled_bucket_matvec) and its fold.  One launch applies one
-// bucket term of an H-matrix product:
+// kernel behind tiled_bucket_matvec) and its fold, for the plans that run a
+// whole low-rank block in one CTA.  One launch applies one bucket term of an
+// H-matrix product:
 //
 //   for every plan step s, for every slot i of the step (blk[i] >= 0):
 //     y[out_off[i] : out_off[i] + out_w, :] += op(B[blk[i]]) · x[in_off[i] : in_off[i] + in_w, :]
 //
-// where B is a dense block D (op = D or Dᵀ) or a low-rank block U·V with
-// U [bm, r], V [r, bn] (op applied as U (V x) or Vᵀ (Uᵀ x)).  The scalar is
-// float, double, or interleaved complex (complex64 / complex128 as PyTorch
-// stores them); for complex scalars `conj` applies conj(D), or conj(U) and
-// conj(V), so op ranges over B, Bᵀ, conj(B) and Bᴴ.  This also replaces the
-// reference's complex route (build_tile_plan_complex + apply_complex_plans),
-// which splits every block into real and imaginary planes and runs 2 to 4
-// real launches per term because its kernel has no complex type: here a
-// complex entry is read once, as it is stored.  The host plan
-// (htool_tpu_torch/ops/tiled_matvec.py::build_tile_plan) sorts the blocks by
-// output offset, cuts the output into tiles of T rows and a tile's blocks
-// into steps of G slots.  The plan indexes the bucket's own arrays through
-// the sort order (blk[i]), so no sorted copy of the block data exists.  The
-// reference accumulates each tile in a [T + E] buffer and folds the buffers
-// into y afterwards (y[tT : tT+T+E] += tile_t); here each contribution is
-// added at its folded row out_off = tT + out_rel directly, which is the same
-// sum without the buffers and without the fold's extra passes.  The tiles
-// only decide which blocks share a step.
+// where B is a low-rank block U·V with U [bm, r], V [r, bn] (op applied as
+// U (V x) or Vᵀ (Uᵀ x)), or a dense block D (op = D or Dᵀ; the wrapper sends
+// dense plans to stream_matvec.cu, this path remains as the yardstick that
+// tools/torch_kernel_probe.py times the streaming kernel against).  The
+// scalar is float, double, or interleaved complex (complex64 / complex128 as
+// PyTorch stores them); for complex scalars `conj` applies conj(D), or
+// conj(U) and conj(V), so op ranges over B, Bᵀ, conj(B) and Bᴴ.  This also
+// replaces the reference's complex route (build_tile_plan_complex +
+// apply_complex_plans), which splits every block into real and imaginary
+// planes and runs 2 to 4 real launches per term because its kernel has no
+// complex type: here a complex entry is read once, as it is stored.  The
+// host plan (htool_tpu_torch/ops/tiled_matvec.py::build_tile_plan) sorts the
+// blocks by output offset, cuts the output into tiles of T rows and a tile's
+// blocks into steps of G slots.  The plan indexes the bucket's own arrays
+// through the sort order (blk[i]), so no sorted copy of the block data
+// exists.  The reference accumulates each tile in a [T + E] buffer and folds
+// the buffers into y afterwards (y[tT : tT+T+E] += tile_t); here each
+// contribution is added at its folded row out_off = tT + out_rel directly,
+// which is the same sum without the buffers and without the fold's extra
+// passes.  The tiles only decide which blocks share a step.
 //
 // Design: one CTA per (plan step, chunk of up to KC right-hand-side
 // columns).  The step's blocks run one after another through the block
-// routines of matvec_block.cuh (row dots, column sums, low-rank passes
-// through shared memory), which add into y with atomicAdd; so a warp may
-// start the next dense block while others finish, and the order of the
-// additions, and so the rounding, varies from run to run.
+// routines of matvec_block.cuh (row dots, column sums, low-rank passes of 64
+// rank rows through shared memory), which add into y with atomicAdd; the
+// order of the additions, and so the rounding, varies from run to run.
 //
-// What bounds it: every block entry is read once per product, with 2·KC
-// flops per entry read, so on the H100 it is bound by device memory
-// bandwidth (3.35 TB/s).  What this simple design leaves on the table: no
-// tensor cores (wgmma), no TMA or cp.async pipelining of the block stream,
-// x windows read through L1 instead of being staged, a fixed number of
-// blocks per CTA instead of balancing by bytes, and one launch per bucket
-// term.
+// What bounds it on the H100: every block entry is read once per product,
+// with 2·KC (real) or 8·KC (complex) flops per entry, so device memory
+// bandwidth (3.35 TB/s).  It reaches half of that only at k = 1: entries go
+// from device memory straight to registers, so at k = 8, where the sums take
+// the registers, few bytes are in flight; a CTA takes 4 blocks whatever their
+// size; every lane adds its row's k sums to y one request at a time; and a
+// rank above 64 walks the x window once per pass.  The streaming kernels
+// (matvec_stream.cuh, stream_matvec.cu) are the answer to each of these;
+// the split two-stage plan sends low-rank buckets there, and
+// ops/cut.py::lr_split_wanted leaves only buckets of very small blocks, where
+// a second launch costs more than it saves, to this kernel.
 
 #include "matvec_block.cuh"
 

@@ -21,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from .utils.device import resolve_device
+
 __all__ = [
     "Generator",
     "KernelGenerator",
@@ -64,13 +66,13 @@ class KernelGenerator(Generator):
     ``kernel`` maps broadcastable coordinate tensors ``[..., d]`` to scalars
     ``[...]`` using torch ops.  Points are NumPy arrays or tensors; they
     live on ``device`` (default: the device of ``target_points`` when it is
-    a tensor, else the CPU), with the dtype they were given.
+    a tensor, else the GPU; see :mod:`.utils.device`), with the dtype they
+    were given.
     """
 
     def __init__(self, kernel: Callable, target_points, source_points,
                  dtype=None, device=None):
-        if device is None:
-            device = target_points.device if torch.is_tensor(target_points) else "cpu"
+        device = resolve_device(device, target_points)
         self.kernel = kernel
         self.target_points = torch.as_tensor(target_points, device=device)
         self.source_points = torch.as_tensor(source_points, device=device)
@@ -151,8 +153,7 @@ class MatrixGenerator(Generator):
     (``testing/generator_test.hpp:207-221``)."""
 
     def __init__(self, matrix, device=None):
-        if device is None:
-            device = matrix.device if torch.is_tensor(matrix) else "cpu"
+        device = resolve_device(device, matrix)
         self.matrix = torch.as_tensor(matrix, device=device)
         self.device = self.matrix.device
         self.shape = tuple(self.matrix.shape)

@@ -22,6 +22,7 @@ import torch
 
 from ..clustering.cluster_tree import ClusterTree
 from ..generator import Generator, TransposedGenerator
+from ..utils.device import resolve_device
 from .aca import batched_partial_aca
 from .compressors import batched_full_aca, batched_recompress, batched_svd_compress
 from .block_tree import BlockTreePlan, plan_block_tree
@@ -495,10 +496,8 @@ def hmatrix_from_dense(
 
     ``A`` is in CLUSTER numbering and spans the (partition-restricted)
     target/source ranges of ``tree``.  It lives on ``device`` (default: A's
-    own when it is a tensor, else the CPU)."""
-    if device is None:
-        device = A.device if torch.is_tensor(A) else "cpu"
-    A = torch.as_tensor(A, device=device)
+    own when it is a tensor, else the GPU; see :mod:`..utils.device`)."""
+    A = torch.as_tensor(A, device=resolve_device(device, A))
     offs, sizes = tree.partition_offsets_sizes()
     t_off = int(offs[target_partition]) if target_partition >= 0 else 0
     t_size = int(sizes[target_partition]) if target_partition >= 0 else tree.n_points

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from ..ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
-from ..ops.tiled_matvec import build_tile_plan, build_tile_plan_complex, tiled_bucket_matvec
+from ..ops.cut import lr_split_wanted
+from ..ops.tiled_matvec import build_tile_plan, build_tile_plan_lr_split, tiled_bucket_matvec
 from .hmatrix import DenseBucket, HMatrix
 
 __all__ = [
@@ -49,17 +50,27 @@ def _pad_in_of(h: HMatrix) -> int:
     )
 
 
-def prepare_tiled_matvec(h: HMatrix, tile_rows: Optional[int] = None) -> HMatrix:
+def prepare_tiled_matvec(h: HMatrix, tile_rows: Optional[int] = None,
+                         lr_split: Optional[bool] = None) -> HMatrix:
     """Attach tiled-product plans (:mod:`..ops.tiled_matvec`) to every
     bucket of a GLOBAL H-matrix, real or complex, both output sides, in
-    place.  Products then run the tiled Hopper kernel on every bucket term.
-    Call once, after assembly."""
+    place.  Products then run the tiled Hopper kernels on every bucket term.
+    A low-rank bucket gets a one-launch plan or a split two-stage plan
+    (``build_tile_plan_lr_split``) by :func:`..ops.cut.lr_split_wanted` on its
+    block shape, rank and scalar size; ``lr_split`` True or False forces one
+    of them for every low-rank bucket.  Call once, after assembly."""
     if h.t_root_off != 0:
         raise ValueError("tiled plans require a global (non-restricted) H-matrix")
     pad_in = _pad_in_of(h)
     m, n = h.shape
-    build = build_tile_plan_complex if h.dtype.is_complex else build_tile_plan
     for bucket in h.dense_buckets + h.lr_buckets:
+        build = build_tile_plan
+        if not isinstance(bucket, DenseBucket):
+            bm, bn = bucket.block_shape
+            split = lr_split if lr_split is not None else lr_split_wanted(
+                bm, bn, bucket.rank_padded, bucket.U.element_size())
+            if split and bucket.rank_padded > 0:
+                build = build_tile_plan_lr_split
         bucket.plan_t = build(bucket, "t", m + pad_in, tile_rows)
         bucket.plan_s = build(bucket, "s", n + pad_in, tile_rows)
     return h

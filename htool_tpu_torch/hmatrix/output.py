@@ -21,7 +21,8 @@ import csv
 import numpy as np
 import torch
 
-from ..ops.tiled_matvec import TilePlan
+from ..ops.tiled_matvec import SplitPlan, TilePlan
+from ..utils.device import resolve_device
 from .hmatrix import DenseBucket, HMatrix, LowRankBucket
 
 __all__ = [
@@ -114,31 +115,53 @@ def view_block_tree(h: HMatrix, filename: str | None = None) -> str:
 
 _PLAN_INTS = ("blk", "in_off", "out_rel", "out_off", "tile_of", "first_of")
 _PLAN_AUX = ("T", "E", "G", "n_steps", "n_tiles", "out_len", "in_w", "out_w", "trans",
-             "in_end")
+             "in_end", "P")
+
+
+def _pack_plan(payload: dict, key: str, plan: TilePlan) -> None:
+    payload[f"{key}_aux"] = np.array([int(getattr(plan, a)) for a in _PLAN_AUX], np.int64)
+    for name in _PLAN_INTS:
+        payload[f"{key}_{name}"] = _host(getattr(plan, name))
 
 
 def _pack_plans(payload: dict, prefix: str, bucket) -> None:
+    """One-launch plans under ``*_tplan_<side>``; the two stages of a split
+    plan under ``*_tplan_<side>_a`` / ``_b`` with its ``r_pad``."""
     for side in ("t", "s"):
         plan = getattr(bucket, f"plan_{side}")
-        if plan is None:
-            continue
         key = f"{prefix}_tplan_{side}"
-        payload[f"{key}_aux"] = np.array([int(getattr(plan, a)) for a in _PLAN_AUX], np.int64)
-        for name in _PLAN_INTS:
-            payload[f"{key}_{name}"] = _host(getattr(plan, name))
+        if isinstance(plan, SplitPlan):
+            payload[f"{key}_split"] = np.array([plan.r_pad], np.int64)
+            _pack_plan(payload, f"{key}_a", plan.stage_a)
+            _pack_plan(payload, f"{key}_b", plan.stage_b)
+        elif plan is not None:
+            _pack_plan(payload, key, plan)
+
+
+def _unpack_plan(z, key: str, blocks: dict, device) -> TilePlan:
+    aux = dict(zip(_PLAN_AUX, (int(a) for a in z[f"{key}_aux"])))  # older files: no P
+    aux["trans"] = bool(aux["trans"])
+    ints = {name: torch.as_tensor(z[f"{key}_{name}"], device=device) for name in _PLAN_INTS}
+    return TilePlan(**blocks, **aux, **ints)
 
 
 def _unpack_plans(z, prefix: str, bucket, device) -> None:
     for side in ("t", "s"):
         key = f"{prefix}_tplan_{side}"
-        if f"{key}_aux" not in z:
+        if f"{key}_split" in z:
+            # stage A streams V then stage B U; transposed (side "s"): U then V
+            first, second = (bucket.V, bucket.U) if side == "t" else (bucket.U, bucket.V)
+            plan = SplitPlan(
+                _unpack_plan(z, f"{key}_a", dict(kind="dense", data=first), device),
+                _unpack_plan(z, f"{key}_b", dict(kind="dense", data=second), device),
+                int(z[f"{key}_split"][0]))
+        elif f"{key}_aux" in z:
+            blocks = (dict(kind="dense", data=bucket.data) if isinstance(bucket, DenseBucket)
+                      else dict(kind="lr", U=bucket.U, V=bucket.V))
+            plan = _unpack_plan(z, key, blocks, device)
+        else:
             continue
-        aux = dict(zip(_PLAN_AUX, (int(a) for a in z[f"{key}_aux"])))
-        aux["trans"] = bool(aux["trans"])
-        ints = {name: torch.as_tensor(z[f"{key}_{name}"], device=device) for name in _PLAN_INTS}
-        blocks = (dict(kind="dense", data=bucket.data) if isinstance(bucket, DenseBucket)
-                  else dict(kind="lr", U=bucket.U, V=bucket.V))
-        setattr(bucket, f"plan_{side}", TilePlan(**blocks, **aux, **ints))
+        setattr(bucket, f"plan_{side}", plan)
 
 
 def save_hmatrix(h: HMatrix, filename: str, include_plans: bool = True) -> None:
@@ -175,8 +198,9 @@ def save_hmatrix(h: HMatrix, filename: str, include_plans: bool = True) -> None:
 
 def load_hmatrix(filename: str, device=None) -> HMatrix:
     """Load an H-matrix written by :func:`save_hmatrix` (or by the JAX
-    package's ``save_hmatrix``) onto ``device`` (default CPU)."""
-    device = torch.device("cpu" if device is None else device)
+    package's ``save_hmatrix``) onto ``device`` (default: the GPU, see
+    :mod:`..utils.device`)."""
+    device = resolve_device(device)
 
     def dev(a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)

@@ -22,8 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_info", "check", "entry_point", "count_launch",
-           "SUFFIX_OF"]
+__all__ = ["load_library", "build_library", "build_info", "check", "entry_point", "count_launch",
+           "launch", "SUFFIX_OF"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -63,6 +63,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     signatures = {
         "htool_tiled_matvec": [ci, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci,
                                vp, ci, vp, vp],
+        "htool_stream_matvec": [ci, ci, ci, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci,
+                                vp, vp],
+        "htool_lr_bucket_stream": [ci, ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp, ll, ci,
+                                   vp, ll, vp, ci, ci, ci, ci, ci, ci, ci, vp],
         "htool_dense_bucket_matvec": [ci, ci, vp, ci, ci, ci, vp, vp, ll, ll, vp, ll,
                                       ci, vp, ll, vp],
         "htool_lr_bucket_matvec": [ci, ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp,
@@ -73,21 +77,25 @@ def _declare(lib: ctypes.CDLL) -> None:
             fn = getattr(lib, base + suffix)
             fn.argtypes = argtypes
             fn.restype = ci
+    lib.htool_stream_ctas_per_sm.argtypes = [ci]
+    lib.htool_stream_ctas_per_sm.restype = ci
     lib.htool_cuda_error_string.argtypes = [ci]
     lib.htool_cuda_error_string.restype = ctypes.c_char_p
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+def build_library(extra_flags: tuple = (), only: tuple = ()) -> tuple:
+    """Compile the sources (all, or the ``.cu`` files named in ``only``) with
+    ``extra_flags`` added and return ``(path of the shared library, path of
+    the compiler's log)``.  A library built before with the same sources and
+    flags is reused."""
     srcs = _sources()
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    flags = [*_NVCC_FLAGS, *extra_flags]
+    h = hashlib.sha256(" ".join([*flags, *only]).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     so = _BUILD / f"libhtool_kernels_{h.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")
-    t0 = time.perf_counter()
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         # build in a temporary directory and rename, so a concurrent or
@@ -95,10 +103,10 @@ def load_library() -> ctypes.CDLL:
         with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
             nvcc = _nvcc()
             objs, procs = [], []
-            for src in (s for s in srcs if s.suffix == ".cu"):
+            for src in (s for s in srcs if s.suffix == ".cu" and (not only or s.name in only)):
                 objs.append(os.path.join(tmp, src.stem + ".o"))
                 procs.append(subprocess.Popen(
-                    [nvcc, *_NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", objs[-1], str(src)],
+                    [nvcc, *flags, "-I", str(_CSRC), "-c", "-o", objs[-1], str(src)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 ))
             text = "".join(p.communicate()[0] for p in procs)
@@ -113,6 +121,14 @@ def load_library() -> ctypes.CDLL:
             if not ok:
                 raise RuntimeError(f"nvcc failed:\n{text}")
             os.replace(lib_tmp, so)
+    return so, log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    t0 = time.perf_counter()
+    so, log = build_library()
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     build_info.update(
@@ -123,6 +139,7 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def entry_point(base: str, dtype):
     """The library's function ``base`` for a torch dtype (building the
     library at first use); raises ``TypeError`` for a dtype the kernels are
@@ -134,11 +151,41 @@ def entry_point(base: str, dtype):
     return getattr(load_library(), base + suffix)
 
 
-def count_launch(wrapper, dtype) -> None:
-    """Add one kernel launch to a wrapper's counts: ``wrapper.launches`` and
-    ``wrapper.launches_by_dtype[dtype]``."""
+def _raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on device ``index``."""
+    import torch
+
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:  # no Stream object is built: a wrapper call is mostly host time
+        return get(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(fn, device, *args) -> None:
+    """Call the library function ``fn(*args, stream)`` on PyTorch's current
+    stream of ``device`` and raise if the launch was refused.  ``device`` is
+    made current for the call when it is not (a raw launch goes to the
+    current device)."""
+    import torch
+
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        code = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, _raw_stream(index))
+    if code != 0:
+        check(code)
+
+
+def count_launch(wrapper, dtype, k: int) -> None:
+    """Add one bucket term that went to the GPU to a wrapper's counts:
+    ``wrapper.launches``, ``wrapper.launches_by_dtype[dtype]`` and
+    ``wrapper.launches_by_k[(dtype, k)]`` (k right-hand-side columns)."""
     wrapper.launches += 1
     wrapper.launches_by_dtype[dtype] = wrapper.launches_by_dtype.get(dtype, 0) + 1
+    wrapper.launches_by_k[(dtype, k)] = wrapper.launches_by_k.get((dtype, k), 0) + 1
 
 
 def check(code: int) -> None:

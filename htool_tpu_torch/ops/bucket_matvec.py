@@ -14,26 +14,37 @@ are the bucket's own ``t_off``/``s_off``; ``in_root``/``out_root`` are the
 root offsets a partition-restricted block row subtracts on its local side.
 
 The Pallas kernels walk the blocks on a sequential grid with x and y
-resident in VMEM; the Hopper kernel (``htool_tpu_torch/csrc/bucket_matvec.cu``)
-runs one block per CTA and adds into y with atomics.  Not ported: the VMEM
-gate ``pallas_matvec_ok``, block grouping (``_group_factor``, ``_pad_group``)
-and the ``HTOOL_TPU_PALLAS`` switch.
+resident in VMEM.  The Hopper kernels add into y with atomics.  A dense
+term, and a low-rank term of narrow blocks, run one block per CTA
+(``htool_tpu_torch/csrc/bucket_matvec.cu``; a low-rank block goes through a
+shared-memory intermediate).  Other low-rank terms
+(:func:`..ops.cut.lr_split_wanted`) run in two stages
+(``csrc/bucket_lr_stream.cu``): ``t = op(V)·x`` (``op(U)ᵀ·x`` when
+transposed) into a staging tensor ``[nb·r_pad, k]`` that the wrapper
+allocates, then ``y += op(U)·t``, each stage cut by bytes
+(:func:`..ops.cut.cut_rule`: P panels per block along the output dimension,
+G panels per CTA), so the grid is ``(nb·P/G, k chunks)`` whatever the
+bucket.  Not ported: the VMEM gate ``pallas_matvec_ok`` and the
+``HTOOL_TPU_PALLAS`` switch.
 
 The wrappers take float32, float64, complex64 or complex128 blocks of the
 same dtype as x; the complex kernels read interleaved entries as PyTorch
 stores them.  CPU tensors run the plain version (gather → ``bmm`` →
 ``index_add_``); CUDA tensors launch the kernel or raise; other devices and
 other dtypes raise.
-Each launch adds one to the wrapper's ``launches`` and to its
-``launches_by_dtype[dtype]``; a bucket with no blocks launches nothing.
+Each term that goes to the GPU adds one to the wrapper's ``launches`` and to
+its ``launches_by_dtype[dtype]``, and its CUDA launches (two for a two-stage
+term) to ``cuda_launches``; a bucket with no blocks launches nothing.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import Optional
 
 import torch
+
+from .cut import cut_rule, lr_split_wanted, lr_stage_shapes, staging_rows
 
 __all__ = [
     "dense_bucket_matvec",
@@ -118,14 +129,12 @@ def _checked(name, blocks, in_off, out_off, x_pad, out_len, out):
     return out, k
 
 
-def _launch(wrapper, base, args, x_pad):
-    from ..kernels import check, count_launch, entry_point
+def _launch(wrapper, base, args, x_pad, cuda_launches=1):
+    from ..kernels import count_launch, entry_point, launch
 
-    fn = entry_point(base, x_pad.dtype)
-    with torch.cuda.device(x_pad.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check(fn(*args, ctypes.c_void_p(stream)))
-    count_launch(wrapper, x_pad.dtype)
+    launch(entry_point(base, x_pad.dtype), x_pad.device, *args)
+    count_launch(wrapper, x_pad.dtype, int(x_pad.shape[1]))
+    wrapper.cuda_launches += cuda_launches
 
 
 def dense_bucket_matvec(data, in_off, out_off, x_pad, trans: bool, out_len: int,
@@ -153,10 +162,12 @@ def dense_bucket_matvec(data, in_off, out_off, x_pad, trans: bool, out_len: int,
 def lr_bucket_matvec(U, V, in_off, out_off, x_pad, trans: bool, out_len: int,
                      *, in_root: int = 0, out_root: int = 0,
                      out: Optional[torch.Tensor] = None,
-                     conj: bool = False) -> torch.Tensor:
+                     conj: bool = False, split: Optional[bool] = None) -> torch.Tensor:
     """One low-rank bucket term: U [nb, bm, r], V [nb, r, bn], int64 offsets
     [nb], x_pad [L, k]; ``conj`` conjugates both factors.  Returns y
-    [out_len, k], added into ``out`` when it is given."""
+    [out_len, k], added into ``out`` when it is given.  ``split`` forces the
+    two-stage (True) or the one-launch (False) kernel; by default
+    :func:`..ops.cut.lr_split_wanted` decides from the shape and k."""
     y, k = _checked("lr_bucket_matvec", [U, V], in_off, out_off, x_pad, out_len, out)
     if x_pad.device.type == "cpu":
         return lr_bucket_matvec_reference(U, V, in_off, out_off, x_pad, trans, out_len,
@@ -164,16 +175,41 @@ def lr_bucket_matvec(U, V, in_off, out_off, x_pad, trans: bool, out_len: int,
                                           conj=conj)
     nb, bm, r = (int(s) for s in U.shape)
     bn = int(V.shape[2])
-    if nb == 0 or k == 0:
+    if nb == 0 or k == 0 or r == 0:
         return y
-    _launch(lr_bucket_matvec, "htool_lr_bucket_matvec",
-            (int(trans), int(bool(conj)), U.data_ptr(), V.data_ptr(), nb, bm, bn, r,
-             in_off.data_ptr(), out_off.data_ptr(), int(in_root), int(out_root),
-             x_pad.data_ptr(), int(x_pad.shape[0]), k, y.data_ptr(), int(out_len)), x_pad)
+    common = (int(trans), int(bool(conj)), U.data_ptr(), V.data_ptr(), nb, bm, bn, r,
+              in_off.data_ptr(), out_off.data_ptr(), int(in_root), int(out_root),
+              x_pad.data_ptr(), int(x_pad.shape[0]), k, y.data_ptr(), int(out_len))
+    route = _lr_route(nb, bm, bn, r, U.element_size(), bool(trans), split, k)
+    if route is None:
+        _launch(lr_bucket_matvec, "htool_lr_bucket_matvec", common, x_pad)
+        return y
+    t = torch.empty((nb * route[0], k), dtype=x_pad.dtype, device=x_pad.device)
+    _launch(lr_bucket_matvec, "htool_lr_bucket_stream", common + (t.data_ptr(), *route), x_pad,
+            cuda_launches=2)
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def _lr_route(nb, bm, bn, r, item, trans, split, k):
+    """What depends only on a low-rank bucket's shape and on k: ``None`` for
+    the one-launch kernel, else ``(r_pad, P, cut, G of stage A, P, cut, G of
+    stage B)`` for the two-stage one."""
+    if split is None:
+        split = lr_split_wanted(bm, bn, r, item, k)
+    if not split:
+        return None
+    stages = []
+    for rows, cols in lr_stage_shapes(bm, bn, r, trans):
+        stages += cut_rule(nb, rows, cols, item, trans)
+    return (staging_rows(r), *stages)
+
+
 dense_bucket_matvec.launches = 0
+dense_bucket_matvec.cuda_launches = 0
 dense_bucket_matvec.launches_by_dtype = {}
+dense_bucket_matvec.launches_by_k = {}
 lr_bucket_matvec.launches = 0
+lr_bucket_matvec.cuda_launches = 0
 lr_bucket_matvec.launches_by_dtype = {}
+lr_bucket_matvec.launches_by_k = {}

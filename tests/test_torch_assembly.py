@@ -13,6 +13,7 @@ import htool_tpu as hj
 import htool_tpu.testing as kj
 import htool_tpu_torch as ht
 import htool_tpu_torch.testing as kt
+import torch_parity  # noqa: F401  (asks the port for the CPU)
 from htool_tpu.testing import create_sphere
 from htool_tpu_torch.generator import TransposedGenerator
 

@@ -335,11 +335,20 @@ def test_complex_plans_save_load_roundtrip(pairs, tmp_path, name):
             for side in ("plan_t", "plan_s"):
                 pa, pb = getattr(ba, side), getattr(bb, side)
                 assert pb is not None and pb.dtype == torch.complex128
-                for f in dataclasses.fields(pa):
-                    va, vb = getattr(pa, f.name), getattr(pb, f.name)
-                    assert torch.equal(va, vb) if isinstance(va, torch.Tensor) else va == vb, f.name
-                blocks = bb.data if pb.kind == "dense" else bb.U
-                assert (pb.data if pb.kind == "dense" else pb.U) is blocks
+                assert type(pb) is type(pa)
+                if pb.kind == "lr_split":  # two stages over the reloaded U and V
+                    assert pb.r_pad == pa.r_pad
+                    assert {id(pb.stage_a.data), id(pb.stage_b.data)} == {id(bb.U), id(bb.V)}
+                    stages = list(zip(pa, pb))
+                else:
+                    blocks = bb.data if pb.kind == "dense" else bb.U
+                    assert (pb.data if pb.kind == "dense" else pb.U) is blocks
+                    stages = [(pa, pb)]
+                for qa, qb in stages:
+                    for f in dataclasses.fields(qa):
+                        va, vb = getattr(qa, f.name), getattr(qb, f.name)
+                        assert (torch.equal(va, vb) if isinstance(va, torch.Tensor)
+                                else va == vb), f.name
         for op in ("N", "T", "C"):
             x = torch.as_tensor(_x(Ht.shape[1] if op == "N" else Ht.shape[0], 2, 4))
             assert torch.equal(lt.matvec(back, x, op=op), lt.matvec(Ht, x, op=op))

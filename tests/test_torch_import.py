@@ -24,6 +24,7 @@ SLICE = [
     "htool_tpu_torch.hmatrix.aca",
     "htool_tpu_torch.hmatrix.assembly",
     "htool_tpu_torch.hmatrix.info",
+    "htool_tpu_torch.ops.cut",
     "htool_tpu_torch.ops.tiled_matvec",
     "htool_tpu_torch.kernels",
     "htool_tpu_torch.hmatrix.linalg",
@@ -34,6 +35,7 @@ SLICE = [
     "htool_tpu_torch.hmatrix.compressors",
     "htool_tpu_torch.hmatrix.lr_linalg",
     "htool_tpu_torch.hmatrix.output",
+    "htool_tpu_torch.utils.device",
     "htool_tpu_torch.utils.logger",
     "htool_tpu_torch.utils.options",
     "htool_tpu_torch.testing.problems",

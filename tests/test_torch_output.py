@@ -16,6 +16,7 @@ import htool_tpu as hj
 import htool_tpu.hmatrix.output as oj
 import htool_tpu.testing as kj
 import htool_tpu_torch as ht
+from htool_tpu_torch.ops.tiled_matvec import SplitPlan
 import htool_tpu_torch.hmatrix.output as ot
 import htool_tpu_torch.testing as kt
 from htool_tpu.testing import create_sphere, laplace_kernel_symmetric
@@ -70,10 +71,18 @@ def test_save_load_roundtrip(pairs, tmp_path, sym, plans):
         for side in ("t", "s"):
             p, p2 = getattr(b, f"plan_{side}"), getattr(b2, f"plan_{side}")
             if plans:
-                for f in dataclasses.fields(p):
-                    va, vb = getattr(p, f.name), getattr(p2, f.name)
-                    assert torch.equal(va, vb) if isinstance(va, torch.Tensor) else va == vb
-                assert p2.data is b2.data if p2.kind == "dense" else p2.U is b2.U
+                assert type(p2) is type(p)
+                if isinstance(p, SplitPlan):  # its two stages, over the bucket's own U and V
+                    assert p2.r_pad == p.r_pad
+                    assert {id(p2.stage_a.data), id(p2.stage_b.data)} == {id(b2.U), id(b2.V)}
+                    stages = list(zip(p, p2))
+                else:
+                    assert p2.data is b2.data if p2.kind == "dense" else p2.U is b2.U
+                    stages = [(p, p2)]
+                for q, q2 in stages:
+                    for f in dataclasses.fields(q):
+                        va, vb = getattr(q, f.name), getattr(q2, f.name)
+                        assert torch.equal(va, vb) if isinstance(va, torch.Tensor) else va == vb
     x = torch.as_tensor(np.random.RandomState(1).randn(N, 2))
     for op in ("N", "T"):
         np.testing.assert_array_equal(matvec(H2, x, op=op).numpy(), matvec(H, x, op=op).numpy())

@@ -127,23 +127,25 @@ def test_reference_matches_pallas_interpret(pair32, monkeypatch, kind, side):
 
 
 def _kernel_walk(plan, x):
-    """The CUDA kernel's traversal in Python: step i walks slots i·G ..
-    i·G + G - 1, skips blk < 0, and adds op(B[blk]) · x window straight
-    into y at row out_off (the fold, done as it goes)."""
+    """The CUDA kernels' traversal in Python: step i walks slots i·G ..
+    i·G + G - 1, skips blk < 0, and adds panel blk % P of op(B[blk // P])
+    · x window straight into y at row out_off (the fold, done as it goes)."""
     y = torch.zeros((plan.out_len, x.shape[1]), dtype=x.dtype)
     blk = plan.blk.tolist()
     for i in range(plan.n_steps):
         for s in range(i * plan.G, (i + 1) * plan.G):
-            b = blk[s]
-            if b < 0:
+            if blk[s] < 0:
                 continue
+            b, p = divmod(blk[s], plan.P)
             xw = x[int(plan.in_off[s]) : int(plan.in_off[s]) + plan.in_w]
             if plan.kind == "dense":
                 B = plan.data[b]
             else:
                 B = plan.U[b] @ plan.V[b]
+            op = B.T if plan.trans else B
             r = int(plan.out_off[s])
-            y[r : r + plan.out_w] += (B.T if plan.trans else B) @ xw
+            rows = op[p * plan.out_w : (p + 1) * plan.out_w]  # the last panel is clipped
+            y[r : r + rows.shape[0]] += rows @ xw
     return y
 
 
@@ -179,7 +181,9 @@ def test_wide_blocks_extension_beyond_tile(trans):
     for bucket in (DenseBucket(data=D, t_off=offs, s_off=offs2),
                    LowRankBucket(U=U, V=V, t_off=offs, s_off=offs2)):
         plan = build_tile_plan(bucket, side, L + w, 128)
-        assert plan.E > plan.T
+        # a low-rank plan entry is a whole block (E > T); a dense block this
+        # large is cut into panels by bytes, which straddle the tiles instead
+        assert w > plan.T and (plan.E > plan.T if plan.kind == "lr" else plan.P > 1)
         got = tiled_bucket_matvec_reference(plan, x)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-10)
         np.testing.assert_allclose(_kernel_walk(plan, x).numpy(), want.numpy(),

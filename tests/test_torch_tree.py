@@ -9,6 +9,7 @@ pytest.importorskip("torch")
 
 import htool_tpu as hj
 import htool_tpu_torch as ht
+import torch_parity  # noqa: F401  (asks the port for the CPU)
 from htool_tpu.testing import create_sphere as sphere_jax
 from htool_tpu_torch.testing import create_sphere as sphere_torch
 

@@ -1,9 +1,17 @@
 """Helpers for the parity tests of the PyTorch port: turn JAX-package objects
-into the plain NumPy dicts that ``htool_tpu_torch.convert`` takes."""
+into the plain NumPy dicts that ``htool_tpu_torch.convert`` takes.
+
+Importing this module also asks the port for the CPU: its entry points put
+NumPy input on the GPU unless told otherwise, and these tests run without
+one.  Every ``tests/test_torch_*.py`` imports it."""
 
 import dataclasses
 
 import numpy as np
+
+import htool_tpu_torch
+
+htool_tpu_torch.set_default_device("cpu")
 
 
 def tree_fields(tree) -> dict:
