@@ -11,7 +11,10 @@ Phases (each prints one JSON line):
 1. device — the card, and ``nvidia-smi``'s name and power limit line;
 2. build — the CUDA kernels are compiled from ``htool_tpu_torch/csrc`` for
    float32, float64, complex64 and complex128; then the device rule: an
-   H-matrix built from NumPy points with no ``device`` must lie on the card;
+   H-matrix built from NumPy points with no ``device`` must lie on the card
+   (n = 2,000; with plans attached its low-rank buckets, too short for two
+   stages, run the one-launch planned kernel, held against the unplanned
+   product);
 3. main path — sphere → cluster tree → H-matrix (f32, Laplace kernel, leaf
    256, ε = 1e-3, η = 10) → tiled plans → one-level RAS (64 subdomains,
    overlap 0.02, dense local solves) → restarted GMRES(60) to 1e-6, twice,
@@ -315,7 +318,28 @@ def main(argv=None) -> int:
             and all(b.U.is_cuda and b.V.is_cuda for b in H0.lr_buckets),
             "NumPy input with no device did not land on the GPU")
     require(launched0 > 0 and err0 < 1e-3, f"device rule: launches {launched0}, rel {err0:.3e}")
-    del H0, gen0, A0, y0, x0
+    # the same small operator with plans: its low-rank buckets are too short
+    # for a second launch to pay (ops/cut.py::lr_split_wanted), so this is the
+    # user's path through the one-launch planned kernel
+    x0k = torch.as_tensor(np.random.RandomState(args.seed + 1).randn(2000, 8), device=dev)
+    y0u = matvec(H0, x0k)
+    prepare_tiled_matvec(H0)
+    n_one0 = sum(not isinstance(b.plan_t, SplitPlan) for b in H0.lr_buckets)
+    n_terms0 = len(H0.dense_buckets) + len(H0.lr_buckets)
+    reset_counts()
+    y0p = matvec(H0, x0k)
+    torch.cuda.synchronize()
+    rel0 = float(torch.linalg.norm(y0p - y0u) / torch.linalg.norm(y0u))
+    emit(dict(phase="small_planned_path", n=2000, dtype=str(H0.dtype), bucket_terms=n_terms0,
+              one_launch_plans=n_one0, launches=tiled_bucket_matvec.launches,
+              cuda_launches=tiled_bucket_matvec.cuda_launches, planned_vs_unplanned_rel=rel0))
+    require(n_one0 > 0 and tiled_bucket_matvec.launches == n_terms0
+            and tiled_bucket_matvec.cuda_launches == n_terms0 + len(H0.lr_buckets) - n_one0,
+            f"small planned path: {n_one0} one-launch plans, {tiled_bucket_matvec.launches} terms "
+            f"launched of {n_terms0}, {tiled_bucket_matvec.cuda_launches} CUDA launches")
+    require(rel0 <= 1e-12 if H0.dtype == torch.float64 else rel0 <= 1e-5,
+            f"small planned path: planned against unplanned rel {rel0:.3e}")
+    del H0, gen0, A0, y0, x0, x0k, y0u, y0p
 
     # ---------------- 3. main path ----------------
     n, P, eps, tol = args.n, 64, 1e-3, 1e-6
@@ -441,7 +465,8 @@ def main(argv=None) -> int:
     ))
     n_split = sum(isinstance(b.plan_t, SplitPlan) for b in H.lr_buckets)
     require(all(isinstance(b.plan_t, SplitPlan) == lr_split_wanted(
-                *b.block_shape, b.rank_padded, b.U.element_size()) for b in H.lr_buckets),
+                b.n_blocks, *b.block_shape, b.rank_padded, b.U.element_size())
+                for b in H.lr_buckets),
             "prepare_tiled_matvec: a low-rank bucket's plan is not the rule's")
     require(cuda_launches == (terms + n_split) * products,
             f"CUDA launches {cuda_launches} != (terms {terms} + split plans {n_split}) x "
@@ -488,7 +513,8 @@ def main(argv=None) -> int:
         the name of the route prepare_tiled_matvec picks."""
         if isinstance(bucket, ht.DenseBucket):
             return {"dense": build_tile_plan(bucket, side, out_len)}, "dense"
-        picked = "split" if lr_split_wanted(*bucket.block_shape, bucket.rank_padded,
+        picked = "split" if lr_split_wanted(bucket.n_blocks, *bucket.block_shape,
+                                            bucket.rank_padded,
                                             bucket.U.element_size()) else "one_launch"
         return {"one_launch": build_tile_plan(bucket, side, out_len),
                 "split": build_tile_plan_lr_split(bucket, side, out_len)}, picked

@@ -34,8 +34,10 @@
 // k = 1 and 16 - 34 % at k = 8 (entries go from device memory straight to
 // registers; one CTA streams a block alone whatever its size; a lane adds
 // its row's k sums to y one request at a time).  Low-rank terms therefore
-// go to the two-stage streaming kernel (bucket_lr_stream.cu) unless their
-// blocks are very small (ops/cut.py::lr_split_wanted); the dense terms
+// go to the two-stage streaming kernel (bucket_lr_stream.cu) unless the
+// term is so short that the second launch costs more than the streaming
+// saves (ops/cut.py::lr_split_wanted: under 4 MB a bucket and 128 KB a
+// block, or k = 1 and under 1 MB a block); the dense terms
 // still run here, and their move to the streaming core is the next step.
 //
 // A block whose input or output window falls outside x or y stops the kernel

@@ -2,7 +2,7 @@
 // kernels for NVIDIA Hopper (sm_90a).  The scalar overloads (cplx, mul_add,
 // conj_if, shfl_xor, atomic_add) serve every kernel; the block routines
 // (rowdot, colsum, apply_block) serve the one-launch kernels: tiled_matvec.cu
-// (planned low-rank terms of very small blocks; replaces
+// (planned low-rank terms too short for two launches; replaces
 // htool_tpu/ops/tiled_matvec.py::_tiled_kernel) and bucket_matvec.cu
 // (unplanned dense terms and such low-rank terms; replaces
 // htool_tpu/ops/bucket_matvec.py::_dense_kernel and ::_lr_kernel).  They read

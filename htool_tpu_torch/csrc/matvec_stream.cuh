@@ -55,12 +55,6 @@
 //   (utils/precision.py), which rules out TF32 wgmma, and at k <= 8 the work
 //   is under the FP32/FP64 pipes' roofline.  FP64 mma / split-float32 for
 //   k >= 16 is a later item.
-//
-// -DHTOOL_EXP_SKIP_OUTPUT, -DHTOOL_EXP_SKIP_COMPUTE and -DHTOOL_EXP_LANES32
-// build variants that leave out the N epilogue, leave out the N inner loop,
-// or share every row among 32 lanes; tools/torch_kernel_probe.py times them
-// to say where a launch's time goes (no profiler reads the kernels' stalls
-// on the machines this was written on).
 
 #pragma once
 
@@ -160,11 +154,8 @@ inline int make_geom(StreamGeom& g, bool trans, int KC, int R, int C, int P, int
     // few lanes per row (4 when the panel has rows enough for all sub-warps):
     // a tile is then many short row segments, and a sum crosses few lanes.
     // 32 lanes a row on 224-wide float32 blocks spent 0.6 of 1.03 ms in the
-    // shuffles of the sums (tools/torch_kernel_probe.py --phases exp).
+    // shuffles of the sums (PERF.md section 6).
     int lw = 4;
-#ifdef HTOOL_EXP_LANES32
-    lw = 32;
-#endif
     while (lw > 1 && lw > C) lw >>= 1;
     while (lw < 32 && NWARP * (32 / lw) * RW > cut) lw <<= 1;
     const int rp = NWARP * (32 / lw) * RW;  // rows of one pass of the CTA
@@ -441,7 +432,6 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
         const S* ap[RW];
 #pragma unroll
         for (int q = 0; q < RW; ++q) ap[q] = tile + (size_t)min(rq[q], nr - 1) * g.srow;
-#ifndef HTOOL_EXP_SKIP_COMPUTE
 #pragma unroll 2
         for (int c = sl; c < nc; c += lw) {
           S xv[KC];
@@ -453,12 +443,7 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
             for (int j = 0; j < KC; ++j) mul_add(acc[q][j], av, xv[j]);
           }
         }
-#endif
-#ifdef HTOOL_EXP_SKIP_OUTPUT
-        if (cons.ch == g.nch - 1 && real_at(acc[0], 0) == Real(12345.678)) {
-#else
         if (cons.ch == g.nch - 1) {
-#endif
           // butterfly over the sub-warp's lanes: they all end with the sums,
           // and lane sl writes the reals sl, sl + lw, .. of each row, so that
           // consecutive lanes write consecutive addresses

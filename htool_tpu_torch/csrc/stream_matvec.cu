@@ -59,15 +59,6 @@ int launch(int cj, int store, const void* A, int R, int C, int P, int cut,
   return (int)cudaGetLastError();
 }
 
-template <typename S, int KC, bool TRANS>
-int ctas_per_sm() {
-  constexpr auto kernel = stream_matvec_kernel<S, KC, TRANS>;
-  if (configure_stream_kernel<kernel>()) return -1;
-  int n = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NT, STREAM_SMEM)) return -1;
-  return n;
-}
-
 template <typename S, bool TRANS>
 int by_k(int cj, int store, const void* A, int R, int C, int P, int cut, const PlanAddr& addr,
          int G, const void* x, int k, void* y, cudaStream_t st) {
@@ -103,12 +94,6 @@ int dispatch(int trans, int cj, int store, const void* A, int R, int C, int P, i
   }
 
 extern "C" {
-
-// CTAs of the float32 (wide = 0) or complex128 (wide = 1) k = 8 kernel an SM
-// holds at once (the ring and the registers are sized for 2), or -1 on error.
-int htool_stream_ctas_per_sm(int wide) {
-  return wide ? ctas_per_sm<cplx<double>, 8, false>() : ctas_per_sm<float, 8, false>();
-}
 
 HTOOL_STREAM_ENTRY(f32, float)
 HTOOL_STREAM_ENTRY(f64, double)

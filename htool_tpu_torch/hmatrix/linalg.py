@@ -57,7 +57,7 @@ def prepare_tiled_matvec(h: HMatrix, tile_rows: Optional[int] = None,
     place.  Products then run the tiled Hopper kernels on every bucket term.
     A low-rank bucket gets a one-launch plan or a split two-stage plan
     (``build_tile_plan_lr_split``) by :func:`..ops.cut.lr_split_wanted` on its
-    block shape, rank and scalar size; ``lr_split`` True or False forces one
+    number of blocks, block shape, rank and scalar size; ``lr_split`` True or False forces one
     of them for every low-rank bucket.  Call once, after assembly."""
     if h.t_root_off != 0:
         raise ValueError("tiled plans require a global (non-restricted) H-matrix")
@@ -68,7 +68,7 @@ def prepare_tiled_matvec(h: HMatrix, tile_rows: Optional[int] = None,
         if not isinstance(bucket, DenseBucket):
             bm, bn = bucket.block_shape
             split = lr_split if lr_split is not None else lr_split_wanted(
-                bm, bn, bucket.rank_padded, bucket.U.element_size())
+                bucket.n_blocks, bm, bn, bucket.rank_padded, bucket.U.element_size())
             if split and bucket.rank_padded > 0:
                 build = build_tile_plan_lr_split
         bucket.plan_t = build(bucket, "t", m + pad_in, tile_rows)

@@ -61,8 +61,7 @@ def _sources() -> list[Path]:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "htool_tiled_matvec": [ci, ci, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci,
-                               vp, ci, vp, vp],
+        "htool_tiled_matvec": [ci, ci, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp],
         "htool_stream_matvec": [ci, ci, ci, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci,
                                 vp, vp],
         "htool_lr_bucket_stream": [ci, ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp, ll, ci,
@@ -77,20 +76,17 @@ def _declare(lib: ctypes.CDLL) -> None:
             fn = getattr(lib, base + suffix)
             fn.argtypes = argtypes
             fn.restype = ci
-    lib.htool_stream_ctas_per_sm.argtypes = [ci]
-    lib.htool_stream_ctas_per_sm.restype = ci
     lib.htool_cuda_error_string.argtypes = [ci]
     lib.htool_cuda_error_string.restype = ctypes.c_char_p
 
 
-def build_library(extra_flags: tuple = (), only: tuple = ()) -> tuple:
-    """Compile the sources (all, or the ``.cu`` files named in ``only``) with
-    ``extra_flags`` added and return ``(path of the shared library, path of
+def build_library() -> tuple:
+    """Compile the sources and return ``(path of the shared library, path of
     the compiler's log)``.  A library built before with the same sources and
     flags is reused."""
     srcs = _sources()
-    flags = [*_NVCC_FLAGS, *extra_flags]
-    h = hashlib.sha256(" ".join([*flags, *only]).encode())
+    flags = _NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -103,7 +99,7 @@ def build_library(extra_flags: tuple = (), only: tuple = ()) -> tuple:
         with tempfile.TemporaryDirectory(dir=_BUILD) as tmp:
             nvcc = _nvcc()
             objs, procs = [], []
-            for src in (s for s in srcs if s.suffix == ".cu" and (not only or s.name in only)):
+            for src in (s for s in srcs if s.suffix == ".cu"):
                 objs.append(os.path.join(tmp, src.stem + ".o"))
                 procs.append(subprocess.Popen(
                     [nvcc, *flags, "-I", str(_CSRC), "-c", "-o", objs[-1], str(src)],

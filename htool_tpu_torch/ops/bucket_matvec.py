@@ -15,10 +15,11 @@ root offsets a partition-restricted block row subtracts on its local side.
 
 The Pallas kernels walk the blocks on a sequential grid with x and y
 resident in VMEM.  The Hopper kernels add into y with atomics.  A dense
-term, and a low-rank term of narrow blocks, run one block per CTA
+term, and a short low-rank term, run one block per CTA
 (``htool_tpu_torch/csrc/bucket_matvec.cu``; a low-rank block goes through a
-shared-memory intermediate).  Other low-rank terms
-(:func:`..ops.cut.lr_split_wanted`) run in two stages
+shared-memory intermediate).  Longer low-rank terms
+(:func:`..ops.cut.lr_split_wanted`, by the bytes of a block and of the
+bucket and by k) run in two stages
 (``csrc/bucket_lr_stream.cu``): ``t = op(V)·x`` (``op(U)ᵀ·x`` when
 transposed) into a staging tensor ``[nb·r_pad, k]`` that the wrapper
 allocates, then ``y += op(U)·t``, each stage cut by bytes
@@ -196,7 +197,7 @@ def _lr_route(nb, bm, bn, r, item, trans, split, k):
     the one-launch kernel, else ``(r_pad, P, cut, G of stage A, P, cut, G of
     stage B)`` for the two-stage one."""
     if split is None:
-        split = lr_split_wanted(bm, bn, r, item, k)
+        split = lr_split_wanted(nb, bm, bn, r, item, k)
     if not split:
         return None
     stages = []

@@ -51,15 +51,13 @@ def panels(ext: int, P: int, cut: int):
     return out
 
 
-def cut_rule(nb: int, R: int, C: int, itemsize: int, trans: bool,
-             target: int | None = None) -> Cut:
+def cut_rule(nb: int, R: int, C: int, itemsize: int, trans: bool) -> Cut:
     """The cut of a bucket of ``nb`` row-major matrices ``[R, C]`` applied as
     stored or transposed."""
     ext = C if trans else R  # output dimension
     line = (R if trans else C) * itemsize  # bytes per output row
     total = max(1, nb) * ext * line
-    tgt = target if target is not None else max(_MIN_BYTES, min(_TARGET_BYTES,
-                                                               total // _FILL_CTAS))
+    tgt = max(_MIN_BYTES, min(_TARGET_BYTES, total // _FILL_CTAS))
     cut = max(1, tgt // line)
     if trans:
         align = max(1, 16 // itemsize)  # slabs start on 16-byte boundaries
@@ -97,24 +95,30 @@ def lr_stage_shapes(bm: int, bn: int, r: int, trans: bool):
 
 
 # Rule between the one-launch form of a low-rank term (t in shared memory,
-# one CTA per group of blocks) and the two-stage form (t in device memory).
-# Measured on an NVIDIA H100 80GB HBM3 (PERF.md section 6): at k = 8 two
-# stages win on every low-rank bucket of the n = 100,000 flagships (28 KB of
-# factors a block and up, all four scalar types); only buckets of very small
-# blocks, where the second launch costs more than the panels save, stay in
-# one launch.  At k = 1 the one-launch kernel is not short of registers, the
-# two forms take the same time on the device up to rank 64, and the second
-# launch costs the host 15 - 20 us more, which is what bounds a product of
-# many small terms: a caller that knows k = 1 keeps such terms in one launch.
-_SPLIT_MIN_BYTES = 16 * 1024
-_ONE_LAUNCH_RANK = 64  # rank rows the one-launch kernel keeps in shared memory per pass
+# one CTA per group of blocks) and the two-stage form (t in device memory,
+# both stages cut by bytes).  The second launch costs the host 20 - 35 us
+# more per call and the device about 10 us, and pays when the term is long
+# enough: measured on an NVIDIA H100 80GB HBM3, 700.00 W
+# (``tools/torch_kernel_probe.py --phases rule``: blocks of 1 KB - 1.3 MB,
+# buckets of 256 KB - 64 MB, three scalar types, planned and unplanned, both
+# orientations; the table and the thresholds' fit are in PERF.md section 6).
+# With more than one column the one-launch kernel is short of bytes in
+# flight, and two stages win from 4 MB a bucket up, or from 128 KB a block
+# (one CTA then walks a long block alone).  With one column it is not, and
+# two stages win only where a block is so large (1 MB) that a few CTAs would
+# stream it alone.
+_SPLIT_BUCKET_BYTES = 4 << 20
+_SPLIT_BLOCK_BYTES = 128 << 10
+_SPLIT_BLOCK_BYTES_K1 = 1 << 20
 
 
-def lr_split_wanted(bm: int, bn: int, r: int, itemsize: int, k: int | None = None) -> bool:
-    """Whether a low-rank bucket of this shape runs in two stages: its rank
-    passes the 64 rows of one pass of the one-launch kernel, or its blocks'
-    factors hold 16 KB or more and the product has more than one column
-    (``k`` unknown, as when a plan is built: taken as more than one)."""
-    if r > _ONE_LAUNCH_RANK:
-        return True
-    return k != 1 and (bm + bn) * r * itemsize >= _SPLIT_MIN_BYTES
+def lr_split_wanted(nb: int, bm: int, bn: int, r: int, itemsize: int,
+                    k: int | None = None) -> bool:
+    """Whether a low-rank bucket of ``nb`` blocks ``U [bm, r] · V [r, bn]``
+    runs in two stages.  ``k`` is the number of right-hand-side columns where
+    the caller knows it (an unplanned term); a plan is built without it and
+    is taken to serve more than one column."""
+    block = (bm + bn) * r * itemsize
+    if k == 1:
+        return block >= _SPLIT_BLOCK_BYTES_K1
+    return block >= _SPLIT_BLOCK_BYTES or nb * block >= _SPLIT_BUCKET_BYTES

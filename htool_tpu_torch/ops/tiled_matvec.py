@@ -53,7 +53,8 @@ Hopper differences (no VMEM, no sequential grid):
 
 The kernels are ``htool_tpu_torch/csrc/stream_matvec.cu`` (dense plans and
 both stages of a split plan: panels streamed through shared memory) and
-``csrc/tiled_matvec.cu`` (one-launch low-rank plans, t in shared memory).
+``csrc/tiled_matvec.cu`` (one-launch low-rank plans, t in shared memory:
+terms too short for a second launch to pay).
 The wrapper launches them for CUDA tensors and runs
 :func:`tiled_bucket_matvec_reference` only for CPU tensors.
 """
@@ -319,19 +320,17 @@ def build_tile_plan_lr_split(bucket, out_side: str, out_len: int,
 
 
 def build_tile_plan_complex(bucket, out_side: str, out_len: int,
-                            tile_rows: Optional[int] = None, split: bool = False):
+                            tile_rows: Optional[int] = None):
     """Plan for a complex bucket (complex64 or complex128): the counterpart
     of the reference's ``build_tile_plan_complex``.  There a complex bucket
     becomes real plans over its real and imaginary planes; here the kernels
     read interleaved complex entries, so the plan is :func:`build_tile_plan`'s
-    (or, with ``split``, :func:`build_tile_plan_lr_split`'s) over the
-    bucket's own complex tensors and no plane copy exists.  The conjugated
-    modes are ``tiled_bucket_matvec(plan, x, conj=True)``."""
+    over the bucket's own complex tensors and no plane copy exists.  The
+    conjugated modes are ``tiled_bucket_matvec(plan, x, conj=True)``."""
     blocks = bucket.data if getattr(bucket, "data", None) is not None else bucket.U
     if not blocks.dtype.is_complex:
         raise TypeError(f"build_tile_plan_complex: the bucket is {blocks.dtype}")
-    build = build_tile_plan_lr_split if split else build_tile_plan
-    return build(bucket, out_side, out_len, tile_rows)
+    return build_tile_plan(bucket, out_side, out_len, tile_rows)
 
 
 def _fold(parts: torch.Tensor, plan: TilePlan) -> torch.Tensor:
@@ -459,8 +458,8 @@ def _launch_args(plan: TilePlan, device, dtype):
     else:
         bm, r, bn = plan.U.shape[1], plan.U.shape[2], plan.V.shape[2]
         fn = entry_point("htool_tiled_matvec", dtype)
-        head = (1, int(plan.trans))
-        mid = (None, plan.U.data_ptr(), plan.V.data_ptr(), int(bm), int(bn), int(r), *ptrs,
+        head = (int(plan.trans),)
+        mid = (plan.U.data_ptr(), plan.V.data_ptr(), int(bm), int(bn), int(r), *ptrs,
                int(plan.n_steps), int(plan.G))
     plan._args = ((device, dtype), (fn, head, mid))
     return plan._args[1]

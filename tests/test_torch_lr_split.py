@@ -17,6 +17,8 @@ pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 hypothesis = pytest.importorskip("hypothesis")
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 from hypothesis import given, settings
@@ -31,6 +33,7 @@ import htool_tpu_torch as ht
 from htool_tpu_torch.convert import hmatrix_from_numpy
 from htool_tpu_torch.hmatrix.hmatrix import LowRankBucket
 from htool_tpu_torch.hmatrix.linalg import matvec, prepare_tiled_matvec
+from htool_tpu_torch.ops import cut as cut_mod
 from htool_tpu_torch.ops.cut import cut_rule, lr_split_wanted, lr_stage_shapes, panels
 from htool_tpu_torch.ops.tiled_matvec import (
     _STAGE_B_CHUNK,
@@ -164,8 +167,12 @@ def test_cut_rule_covers_every_entry_once(nb, bm, bn, r, itemsize, trans, target
     of a transposed matrix is at most 256 columns wide and starts on a
     16-byte boundary, and G panels go to a CTA."""
     shapes = [(bm, bn), *lr_stage_shapes(bm, bn, r, trans)]
+    # a byte target of the rule's own, or a finer one set for the test
+    consts = dict(_TARGET_BYTES=cut_mod._TARGET_BYTES if target is None else target,
+                  _MIN_BYTES=cut_mod._MIN_BYTES if target is None else target)
     for R, C in shapes:
-        cut = cut_rule(nb, R, C, itemsize, trans, target=target)
+        with mock.patch.multiple(cut_mod, **consts):
+            cut = cut_rule(nb, R, C, itemsize, trans)
         ext = C if trans else R
         assert cut.P >= 1 and cut.G >= 1 and 1 <= cut.cut <= ext
         assert cut.P == -(-ext // cut.cut)
@@ -241,23 +248,29 @@ def test_matvec_split_plans_match_one_launch_and_jax(pairs, monkeypatch, name, o
 
 def test_prepare_picks_split_by_the_measured_rule(pairs):
     """Without ``lr_split`` each low-rank bucket gets the plan
-    ``lr_split_wanted`` names for its shape, rank and scalar size."""
+    ``lr_split_wanted`` names for its number of blocks, shape, rank and
+    scalar size."""
     _, Ht = pairs["real"]
     try:
         prepare_tiled_matvec(Ht, tile_rows=128)
         kinds = set()
         for b in Ht.lr_buckets:
-            want = lr_split_wanted(*b.block_shape, b.rank_padded, b.U.element_size())
+            want = lr_split_wanted(b.n_blocks, *b.block_shape, b.rank_padded,
+                                   b.U.element_size())
             assert isinstance(b.plan_t, SplitPlan) == isinstance(b.plan_s, SplitPlan) == want
             kinds.add(want)
         assert kinds  # the H-matrix has low-rank buckets
     finally:
         _clear(Ht)
-    assert lr_split_wanted(1568, 1568, 16, 4) and lr_split_wanted(3136, 3136, 512, 8)
-    assert not lr_split_wanted(32, 32, 8, 4)
-    # a caller that knows k = 1 keeps ranks up to 64 in one launch
-    assert not lr_split_wanted(1568, 1568, 16, 4, k=1) and lr_split_wanted(1568, 1568, 16, 4, k=8)
-    assert lr_split_wanted(3136, 3136, 512, 8, k=1)
+    # long terms run in two stages: 4 MB a bucket and up, or 128 KB a block
+    assert lr_split_wanted(367, 1568, 1568, 16, 4) and lr_split_wanted(2637, 224, 224, 16, 4)
+    assert lr_split_wanted(1, 3136, 3136, 512, 8) and lr_split_wanted(10, 6272, 6272, 8, 4)
+    # short ones in one launch, whatever the bytes of a block below 128 KB
+    assert not lr_split_wanted(100, 32, 32, 8, 4) and not lr_split_wanted(30, 416, 416, 32, 4)
+    # a caller that knows k = 1 splits only blocks of 1 MB and more
+    assert not lr_split_wanted(367, 1568, 1568, 16, 4, k=1)
+    assert lr_split_wanted(367, 1568, 1568, 16, 4, k=8)
+    assert lr_split_wanted(8, 3136, 3136, 512, 8, k=1)
 
 
 @pytest.mark.parametrize("name", ["real", "complex"])

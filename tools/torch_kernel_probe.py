@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with a Hopper GPU:
 
     python3 tools/torch_kernel_probe.py [--n 100000] [--out out_dir] [--phases check,real,...]
+    python3 tools/torch_kernel_probe.py --fit out_dir/torch_kernel_probe.jsonl   (no GPU)
 
 Phases (each prints JSON lines; with ``--out`` they are also written to
 ``torch_kernel_probe.jsonl`` there):
@@ -14,13 +15,22 @@ Phases (each prints JSON lines; with ``--out`` they are also written to
   terms) against its plain version on small random buckets: 4 dtypes, both
   orientations, conj, k = 1, 2, 3, 5, 8, 11, aligned and unaligned shapes;
 - ``real``: the real flagship H-matrix (n points on a sphere, f32, leaf 256,
-  64 partitions): per bucket and k = 1, 8, the earlier kernel (one CTA per 4
-  blocks, entries read straight from device memory) against the streaming
-  kernel, and each low-rank bucket one-launch against split; the same
+  64 partitions): per bucket and k = 1, 8, the streaming kernel on the dense
+  bucket and each low-rank bucket one-launch against split; the same
   buckets cast to complex64, float64 and complex128;
 - ``wide``: random complex64 low-rank buckets of the hermitian path's
   shapes, unplanned: one-launch against two-stage, with the ``torch.bmm``
   yardstick;
+- ``rule``: one launch against two stages, planned and unplanned, on random
+  low-rank buckets as the bytes of a block (1 KB - 400 KB) and of the whole
+  bucket (256 KB - 64 MB) vary, at k = 1 and 8: the time per call in a loop
+  of calls (the host's pace where the launch is shorter than a call) and the
+  kernels' own durations from a profiler trace; the measurements behind
+  ``ops/cut.py::lr_split_wanted``;
+- ``product``: the symmetric unplanned product, host enqueue time against
+  the whole, with the rule, all one-launch and all two-stage;
+- ``devtime``: kernel durations of the symmetric path's terms from a
+  profiler trace;
 - ``target``: the real flagship's and the wide buckets' times as the byte
   target of the cut rule varies;
 - ``floor``: what one wrapper call costs on a bucket of one tiny block, on
@@ -55,14 +65,50 @@ def emit(obj):
             f.write(line + "\n")
 
 
+def rule_regret(path: str) -> None:
+    """From the ``rule`` rows of an earlier run's JSON lines (no GPU needed):
+    the mean microseconds a term loses against the faster of its two routes,
+    by the kernels' own durations and by the time per call in a loop, when
+    every term takes one launch, when every term takes two stages, and under
+    ``ops/cut.py::lr_split_wanted``."""
+    from htool_tpu_torch.ops.cut import lr_split_wanted
+
+    rows = [r for r in map(json.loads, open(path)) if r.get("phase") == "rule"]
+    item = {"torch.float32": 4, "torch.complex64": 8, "torch.complex128": 16}
+    choices = {"one_launch": lambda r, k: False, "two_stages": lambda r, k: True,
+               "rule": lambda r, k: lr_split_wanted(r["nb"], r["bm"], r["bm"], r["r"],
+                                                    item[r["dtype"]], k)}
+    for one, two, knows_k in (("planned_one", "planned_split", False),
+                              ("unplanned_one", "unplanned_two", True)):
+        for k in (1, 8):
+            out = {}
+            for name, choose in choices.items():
+                lost = {"_dev_us": [], "_us": []}
+                for r in rows:
+                    if r["k"] != k or min(r[one + "_dev_us"], r[two + "_dev_us"]) <= 0:
+                        continue  # a trace that missed the launches
+                    took = two if choose(r, k if knows_k else None) else one
+                    for sfx, acc in lost.items():
+                        acc.append(r[took + sfx] - min(r[one + sfx], r[two + sfx]))
+                out[name] = dict(device_us=sum(lost["_dev_us"]) / len(lost["_dev_us"]),
+                                 per_call_us=sum(lost["_us"]) / len(lost["_us"]))
+            emit(dict(phase="rule_regret", routes=one.split("_")[0], k=k,
+                      cases=len(lost["_us"]), mean_loss=out))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--fit", default=None, metavar="JSONL",
+                    help="score lr_split_wanted on the rule rows of an earlier run and exit")
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     ap.add_argument("--phases", default="build,check,real,wide,target,floor")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    if args.fit:
+        rule_regret(args.fit)
+        return 0
 
     import torch
 
@@ -108,9 +154,6 @@ def main(argv=None) -> int:
 
     kernels.load_library()
     if "build" in phases:
-        lib = kernels.load_library()
-        emit(dict(phase="occupancy", ctas_per_sm_f32_k8=lib.htool_stream_ctas_per_sm(0),
-                  ctas_per_sm_c128_k8=lib.htool_stream_ctas_per_sm(1)))
         emit(dict(phase="build", seconds=kernels.build_info["seconds"],
                   ptxas=[l.strip() for l in kernels.build_info["ptxas"].splitlines()
                          if "registers" in l or "spill" in l or "Compiling" in l]))
@@ -132,27 +175,6 @@ def main(argv=None) -> int:
 
     def rel(a, b):
         return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-300))
-
-    def old_plan(bucket, side, out_len):
-        """The earlier cut: whole blocks, 4 to a CTA."""
-        saved = tiled_ops.cut_rule
-        tiled_ops.cut_rule = lambda nb, R, C, item, trans: cut_mod.Cut(1, C if trans else R, 4)
-        try:
-            return build_tile_plan(bucket, side, out_len)
-        finally:
-            tiled_ops.cut_rule = saved
-
-    def old_dense(plan, xp, out=None, conj=False):
-        """The earlier planned dense kernel (csrc/tiled_matvec.cu, kind 0)."""
-        if out is None:
-            out = torch.zeros((plan.out_len, xp.shape[1]), dtype=xp.dtype, device=dev)
-        fn = kernels.entry_point("htool_tiled_matvec", xp.dtype)
-        nb, bm, bn = plan.data.shape
-        kernels.launch(fn, dev, 0, int(plan.trans), int(conj), plan.data.data_ptr(), None, None,
-                       bm, bn, 0, plan.blk.data_ptr(), plan.in_off.data_ptr(),
-                       plan.out_off.data_ptr(), plan.n_steps, plan.G, xp.data_ptr(), xp.shape[1],
-                       out.data_ptr())
-        return out
 
     def unplanned(bucket, xp, trans, L, conj=False, split=None, plain=False):
         in_off, out_off = ((bucket.t_off, bucket.s_off) if trans
@@ -218,7 +240,7 @@ def main(argv=None) -> int:
 
     # ---------------- real flagship buckets ----------------
     H = None
-    if phases & {"real", "target", "exp"}:
+    if phases & {"real", "target"}:
         n = args.n
         pts = create_sphere(n, seed=0)
         pts_d = torch.as_tensor(pts.astype(np.float32), device=dev)
@@ -243,8 +265,7 @@ def main(argv=None) -> int:
         xp = randn(L, k, dtype=dtype)
         out = {}
         if isinstance(bucket, ht.DenseBucket):
-            po, pn = old_plan(bucket, side, L), build_tile_plan(bucket, side, L)
-            out["earlier"] = event_ms(lambda: old_dense(po, xp))
+            pn = build_tile_plan(bucket, side, L)
             out["stream"] = event_ms(lambda: tiled_bucket_matvec(pn, xp))
             out["cut"] = [pn.P, pn.out_w, pn.G, pn.n_steps]
         else:
@@ -277,61 +298,64 @@ def main(argv=None) -> int:
             emit(dict(phase="real_sums", dtype=str(dtype),
                       sums={f"k{k}/{name}": v for (k, name), v in sorted(sums.items())}))
 
-    # ---------------- experiments: variants of the streaming kernel ----------------
-    if "exp" in phases:
-        import ctypes
-        from concurrent.futures import ThreadPoolExecutor
+    # ---------------- one launch against two stages: the rule's measurements ----------------
+    if "rule" in phases:
+        from torch.profiler import ProfilerActivity, profile
 
-        variants = {"base": (), "skip_output": ("-DHTOOL_EXP_SKIP_OUTPUT",),
-                    "skip_compute": ("-DHTOOL_EXP_SKIP_COMPUTE",),
-                    "lanes32": ("-DHTOOL_EXP_LANES32",)}
-        with ThreadPoolExecutor(len(variants)) as pool:
-            built = dict(zip(variants, pool.map(
-                lambda fl: kernels.build_library(fl, only=("stream_matvec.cu",)),
-                variants.values())))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        libs = {}
-        for name, (so, _) in built.items():
-            lib = ctypes.CDLL(str(so))
-            for sfx in kernels.SUFFIX_OF.values():
-                fn = getattr(lib, "htool_stream_matvec" + sfx)
-                fn.argtypes = [ci, ci, ci, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp]
-                fn.restype = ci
-            libs[name] = lib
-
-        def run(lib, plan, xp, out, store=0):
-            fn = getattr(lib, "htool_stream_matvec" + kernels.SUFFIX_OF[str(xp.dtype)[6:]])
-            nb, R, C = plan.data.shape
-            n_slots = plan.n_steps * plan.G
-            kernels.launch(fn, dev, int(plan.trans), 0, store, plan.data.data_ptr(), R, C, plan.P,
-                           plan.out_w, plan.blk.data_ptr(), plan.in_off.data_ptr(),
-                           plan.out_off.data_ptr(), n_slots, plan.G,
-                           xp.data_ptr(), xp.shape[1], out.data_ptr())
-
-        cases = []
-        d0 = H.dense_buckets[0]
-        big = max(H.lr_buckets, key=lambda b: b.block_shape[0])
-        rnd = rand_bucket("dense", d0.n_blocks, 224, 224, 0, torch.float32, m_pad)
-        for dtype in (torch.float32, torch.complex64):
-            for side in ("t", "s"):
-                cases.append((f"dense/{str(dtype)[6:]}/{side}",
-                              build_tile_plan(cast(d0, dtype), side, m_pad), dtype, 0))
-            small = min(H.lr_buckets, key=lambda b: b.block_shape[0])
-            for lb in (big, small):
-                sp = build_tile_plan_lr_split(cast(lb, dtype), "t", m_pad)
-                w = lb.block_shape[0]
-                cases.append((f"lr{w}_stageA/{str(dtype)[6:]}/t", sp.stage_a, dtype, 1))
-                cases.append((f"lr{w}_stageB/{str(dtype)[6:]}/t", sp.stage_b, dtype, 0))
-        cases.append(("dense_random_offsets/float32/t", build_tile_plan(rnd, "t", m_pad),
-                      torch.float32, 0))
-        for name, plan, dtype, store in cases:
-            for k in (1, 8):
-                xp = randn(max(m_pad, plan.in_end), k, dtype=dtype)
-                out = torch.zeros((plan.out_len, k), dtype=dtype, device=dev)
-                emit(dict(phase="exp", case=name, k=k,
-                          bytes_ms=plan.data.numel() * plan.data.element_size() / 3.35e9,
-                          ms={v: event_ms(lambda: run(lib, plan, xp, out, store))
-                              for v, lib in libs.items()}))
+        L = 50_000
+        names = {"planned_one": "tiled_matvec_kernel", "planned_split": "stream_matvec_kernel",
+                 "unplanned_one": "bucket_matvec_kernel", "unplanned_two": "bucket_stream_kernel"}
+        shapes = ((64, 2), (64, 4), (64, 8), (128, 8), (128, 16), (224, 16), (416, 16), (416, 32),
+                  (800, 32), (1568, 16), (128, 128), (416, 99))
+        for dtype in (torch.float32, torch.complex64, torch.complex128):
+            item = torch.empty((), dtype=dtype).element_size()
+            for bm, r in shapes:
+                per = 2 * bm * r * item
+                seen = set()
+                for total in (1 << 18, 1 << 20, 1 << 22, 1 << 24, 1 << 26):
+                    nb = max(1, total // per)
+                    if nb in seen:
+                        continue
+                    seen.add(nb)
+                    b = rand_bucket("lr", nb, bm, bm, r, dtype, L)
+                    # offsets on a grid of block rows, as a cluster's blocks
+                    # lie in an H-matrix: consecutive blocks share their rows
+                    ncol = L // bm - 1
+                    i = torch.arange(nb, device=dev)
+                    b = dataclasses.replace(b, t_off=bm * ((i // ncol) % ncol), s_off=bm * (i % ncol))
+                    for trans in (False, True):
+                        side = "s" if trans else "t"
+                        p1 = build_tile_plan(b, side, L)
+                        p2 = build_tile_plan_lr_split(b, side, L)
+                        for k in (1, 8):
+                            xp = randn(L, k, dtype=dtype)
+                            y = torch.zeros((L, k), dtype=dtype, device=dev)
+                            in_off, out_off = (b.t_off, b.s_off) if trans else (b.s_off, b.t_off)
+                            calls = {
+                                "planned_one": lambda: tiled_bucket_matvec(p1, xp, out=y),
+                                "planned_split": lambda: tiled_bucket_matvec(p2, xp, out=y),
+                                "unplanned_one": lambda: lr_bucket_matvec(
+                                    b.U, b.V, in_off, out_off, xp, trans, L, out=y, split=False),
+                                "unplanned_two": lambda: lr_bucket_matvec(
+                                    b.U, b.V, in_off, out_off, xp, trans, L, out=y, split=True),
+                            }
+                            row = dict(phase="rule", dtype=str(dtype), nb=nb, bm=bm, r=r,
+                                       block_bytes=per, bucket_bytes=nb * per, trans=trans, k=k,
+                                       bound_us=1e6 * nb * per / 3.35e12)
+                            for name, fn in calls.items():
+                                row[name + "_us"] = 1e3 * sorted(
+                                    event_ms(fn, reps=15) for _ in range(3))[1]
+                            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                                for fn in calls.values():
+                                    for _ in range(5):
+                                        fn()
+                                sync()
+                            for name, kern in names.items():
+                                row[name + "_dev_us"] = sum(
+                                    e.device_time_total for e in prof.key_averages()
+                                    if kern in e.key) / 5
+                            emit(row)
+                    del b
 
     # ---------------- wide low-rank buckets, unplanned ----------------
     WIDE = [(8, 3136, 3136, 512), (64, 800, 800, 256), (10, 6272, 6272, 8), (32, 1568, 1568, 99),
