@@ -10,7 +10,8 @@ Phases (each prints one JSON line):
 
 1. device — the card, and ``nvidia-smi``'s name and power limit line;
 2. build — the CUDA kernels are compiled from ``htool_tpu_torch/csrc`` for
-   float32, float64, complex64 and complex128; then the device rule: an
+   float32, float64, complex64 and complex128 (no one-launch dense entry
+   point may be left in the library); then the device rule: an
    H-matrix built from NumPy points with no ``device`` must lie on the card
    (n = 2,000; with plans attached its low-rank buckets, too short for two
    stages, run the one-launch planned kernel, held against the unplanned
@@ -44,9 +45,12 @@ Phases (each prints one JSON line):
    generator rows; products timed with the kernels and with their plain
    versions;
 8. unplanned kernels vs plain — every bucket term of that H-matrix and of
-   one block row, both orientations, k = 1 and 8, f32 and f64, every
-   low-rank term through the one-launch and the two-stage kernel, and the
-   random buckets of phase 5's edge shapes with root offsets;
+   one block row, both orientations, k = 1 and 8, f32 and f64 (every dense
+   term through the streaming dense kernel, float64 on the FP64 tensor
+   cores at k = 8; every low-rank term through the one-launch and the
+   two-stage kernel), and the random buckets of phase 5's edge shapes with
+   root offsets (dense blocks cut into panels and slabs: 224² and 256²;
+   odd widths without 16-byte alignment; k = 1, 2, 3, 5, 8, 11);
 9. compressors — full ACA, SVD and partial ACA with SVD recompression at
    ``--compress-n`` points (10,000), each checked against generator rows;
 10. profile — 20 unplanned products at k = 8;
@@ -65,19 +69,23 @@ Phases (each prints one JSON line):
     need Bᴴ and conj(B)), against generator rows and columns;
 13. complex kernels vs plain — every bucket term of both complex
     H-matrices, all four of B, Bᵀ, conj(B), Bᴴ, k = 1 and 8, complex64 and
-    complex128, the edge shapes of phases 5 and 8, and a real H-matrix on a
-    complex x (the real kernels on x viewed as 2k real columns);
+    complex128 (complex128 at k = 8 on the FP64 tensor cores), the edge
+    shapes of phases 5 and 8, and a real H-matrix on a complex x (the real
+    kernels on x viewed as 2k real columns);
 14. profile — 20 complex products at k = 8;
 15. per-call floor — what one wrapper call on a bucket of one tiny block
     costs, on the host clock over 1,000 calls and between CUDA events.
 
 The ``kernels`` line before the last lists every entry point (three kernels
-× float32, float64, complex64, complex128) with its launches on the main
-paths (also split by k), its time summed over the main path's terms at
-k = 8 (and, under ``k1``, at k = 1) beside the plain version's, its bound (bytes moved once over 3.35 TB/s, or operations over
-the peak rate of the type, whichever is larger) and, as the library
-yardstick, ``torch.bmm`` on windows gathered beforehand (gather and
-scatter excluded: no single PyTorch call computes a bucket term).
+× float32, float64, complex64, complex128, and the planned kernel's split
+two-stage low-rank terms apart) with its launches on the main paths (also
+split by k), its time summed over the main path's terms at k = 8 (and,
+under ``k1``, at k = 1) beside the plain version's, its bound (bytes moved
+once over 3.35 TB/s, a split term's staging tensor written and read once
+included, or operations over the peak rate of the type, whichever is
+larger) and, as the library yardstick, ``torch.bmm`` on windows gathered
+beforehand (gather and scatter excluded: no single PyTorch call computes a
+bucket term).
 
 Any failed check raises, so the script exits non-zero.  Only when every
 phase passes does the last line read
@@ -214,6 +222,7 @@ def main(argv=None) -> int:
 
     path_launches_k: dict = {}  # the same, split by the k of the launch
     path_cuda_launches: dict = {}  # CUDA launches behind them (two for a two-stage term)
+    SPLIT = "tiled_bucket_matvec_split"  # row 1c: the planned kernel's split terms apart
 
     def reset_counts():
         for w in wrappers:
@@ -222,6 +231,21 @@ def main(argv=None) -> int:
             w.launches_by_dtype.clear()
             w.launches_by_k.clear()
         matvec.products = 0
+
+    def collect_split(n_split, n_terms):
+        """The split terms among the planned terms launched since the counts
+        were set to 0: each product launched its n_terms terms once, n_split
+        of them through split plans (two CUDA launches each)."""
+        total = 0
+        for (dt, k), c in tiled_bucket_matvec.launches_by_k.items():
+            require(c % n_terms == 0, f"planned launches {c} at {dt} k={k}: not whole products")
+            c_split = c // n_terms * n_split
+            total += c_split
+            path_launches[(SPLIT, dt)] = path_launches.get((SPLIT, dt), 0) + c_split
+            by_k = path_launches_k.setdefault((SPLIT, dt), {})
+            by_k[k] = by_k.get(k, 0) + c_split
+        require(tiled_bucket_matvec.cuda_launches - tiled_bucket_matvec.launches == total,
+                f"split terms {total} != extra CUDA launches")
 
     def collect_launches():
         for w in wrappers:
@@ -245,8 +269,8 @@ def main(argv=None) -> int:
     stats: dict = {}
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-    def stat(wrapper, dtype):
-        return stats.setdefault((wrapper.__name__, dtype), dict(
+    def stat(name, dtype):
+        return stats.setdefault((name, dtype), dict(
             ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0, max_abs_err=0.0, terms=0,
             k1=dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0, terms=0)))
 
@@ -259,16 +283,19 @@ def main(argv=None) -> int:
         sync()
         return ev0.elapsed_time(ev1) / reps
 
-    def account(wrapper, blocks, x, y_rows, in_off, in_w, trans, conj, ms, plain_ms):
-        """Add one main-path term at k = 8 or k = 1 to its entry point's sums."""
-        st = stat(wrapper, x.dtype)
+    def account(name, blocks, x, y_rows, in_off, in_w, trans, conj, ms, plain_ms, t_rows=0):
+        """Add one main-path term at k = 8 or k = 1 to the sums of entry
+        point ``name``; ``t_rows``: rows of a split term's staging tensor
+        (written and read once)."""
+        st = stat(name, x.dtype)
         k, item = x.shape[1], x.element_size()
         if k == 1:
             st = st["k1"]
         st["terms"] += 1
         st["ms"] += ms
         st["plain_ms"] += plain_ms
-        st["bytes"] += item * (sum(b.numel() for b in blocks) + x.numel() + y_rows * k)
+        st["bytes"] += item * (sum(b.numel() for b in blocks) + x.numel() + y_rows * k
+                               + 2 * t_rows * k)
         st["flops"] += (8 if x.dtype.is_complex else 2) * k * sum(b.numel() for b in blocks)
         # the library yardstick: bmm on the gathered windows
         xg = x[in_off.long()[:, None] + torch.arange(in_w, device=x.device)]
@@ -293,10 +320,13 @@ def main(argv=None) -> int:
               torch=torch.__version__, cuda=torch.version.cuda))
 
     # ---------------- 2. build ----------------
-    load_library()
+    lib = load_library()
     emit(dict(phase="build", seconds=build_info["seconds"], library=build_info["library"],
               ptxas=[l.strip() for l in build_info["ptxas"].splitlines()
                      if "registers" in l or "spill" in l]))
+    left = [f"htool_dense_bucket_matvec{sfx}" for sfx in SUFFIX_OF.values()
+            if hasattr(lib, f"htool_dense_bucket_matvec{sfx}")]
+    require(not left, f"one-launch dense entry points still exported: {left}")
 
     # ---------------- 2b. the device rule ----------------
     # NumPy points and no ``device``: the quick start must land on the card
@@ -414,6 +444,8 @@ def main(argv=None) -> int:
     launches64 = tiled_bucket_matvec.launches - l0
     products64 = matvec.products - p0
     residual64 = float(torch.linalg.norm(H @ x64 - b.double()) / torch.linalg.norm(b.double()))
+    collect_split(sum(isinstance(b.plan_t, SplitPlan) for b in H.lr_buckets),
+                  len(H.dense_buckets) + len(H.lr_buckets))
     collect_launches()
 
     # the same k = 8 product through the plain version of the kernel
@@ -503,8 +535,11 @@ def main(argv=None) -> int:
         rel = float(torch.linalg.norm(yk - yr) / torch.linalg.norm(yr).clamp_min(1e-300))
         require(rel <= tol_rel[xp.dtype], f"{what}: rel {rel:.3e}")
         if main:
-            st = stat(tiled_bucket_matvec, xp.dtype)
-            st["max_abs_err"] = max(st["max_abs_err"], float((yk - yr).abs().max()))
+            err = float((yk - yr).abs().max())
+            for nm in ("tiled_bucket_matvec", SPLIT) if isinstance(plan, SplitPlan) else (
+                    "tiled_bucket_matvec",):
+                st = stat(nm, xp.dtype)
+                st["max_abs_err"] = max(st["max_abs_err"], err)
         return rel
 
     def routes_of(bucket, side, out_len):
@@ -531,9 +566,11 @@ def main(argv=None) -> int:
             is_dense = isinstance(bucket, ht.DenseBucket)
             blocks = [bucket.data] if is_dense else [bucket.U, bucket.V]
             bm, bn = bucket.block_shape
-            account(tiled_bucket_matvec, blocks, xp, first.out_len,
-                    bucket.s_off if side == "t" else bucket.t_off, bn if side == "t" else bm,
-                    side == "s", conj, ms[picked], tp)
+            term = (blocks, xp, first.out_len, bucket.s_off if side == "t" else bucket.t_off,
+                    bn if side == "t" else bm, side == "s", conj, ms[picked], tp)
+            account("tiled_bucket_matvec", *term)
+            if picked == "split":  # row 1c: the split terms apart, staging tensor included
+                account(SPLIT, *term, t_rows=routes["split"].stage_a.out_len)
         return ms, tp
 
     total = {(k, "kernel"): 0.0 for k in (1, 8)} | {(k, "plain"): 0.0 for k in (1, 8)}
@@ -590,9 +627,12 @@ def main(argv=None) -> int:
 
     L = 20_000
     # (kind, (bm, bn, r, nb)): wide and non-square blocks, a rank above 64, odd
-    # widths with rank 99 (float32 rows of 396 bytes: no 16-byte alignment, the
-    # element-wise copy path), rank 1, and a bucket of one 6272 x 6272 block
+    # widths (37 x 101; rank 99: float32 rows of 396 bytes, no 16-byte
+    # alignment, the element-wise copy path), rank 1, a bucket of one 6272 x
+    # 6272 block, and few 224² and 256² dense blocks that the cut splits into
+    # panels and slabs (P > 1)
     EDGE_SHAPES = (("dense", (416, 1568, 0, 96)), ("dense", (37, 101, 0, 11)),
+                   ("dense", (224, 224, 0, 3)), ("dense", (256, 256, 0, 4)),
                    ("lr", (6272, 2080, 96, 48)), ("lr", (1001, 777, 99, 6)),
                    ("lr", (333, 517, 1, 9)), ("lr", (6272, 6272, 8, 1)))
     EDGE_KS = (1, 2, 3, 5, 8, 11)
@@ -794,7 +834,7 @@ def main(argv=None) -> int:
             require(r <= tol_rel[xp.dtype], f"{what} split={split}: rel {r:.3e}")
             worst_r = max(worst_r, r)
             if main and split is None:
-                st = stat(kernel, xp.dtype)
+                st = stat(kernel.__name__, xp.dtype)
                 st["max_abs_err"] = max(st["max_abs_err"], float((yk - yr).abs().max()))
         return worst_r
 
@@ -809,7 +849,7 @@ def main(argv=None) -> int:
                         for name, sp in (("one_launch", False), ("two_stage", True))}
         if xp.shape[1] in (1, 8):
             bm, bn = blocks[0].shape[1], blocks[-1].shape[2]
-            account(kernel, blocks, xp, kw["out_len"], kw["in_off"] - kw["in_root"],
+            account(kernel.__name__, blocks, xp, kw["out_len"], kw["in_off"] - kw["in_root"],
                     bm if kw["trans"] else bn, kw["trans"], kw.get("conj", False), tk, tp)
         return tk, tp, by_route
 
@@ -1008,6 +1048,8 @@ def main(argv=None) -> int:
     y128 = matvec_user(Hc, xc8[:, :1].to(torch.complex128))  # the complex128 entry point
     err_c["N/c128"] = rel(y128[sub_t], ref_c["N"][:, :1])
     sync()
+    collect_split(sum(isinstance(b.plan_t, SplitPlan) for b in Hc.lr_buckets),
+                  len(Hc.dense_buckets) + len(Hc.lr_buckets))
     collect_launches()
     watch_plain(False)
     buckets_c = Hc.dense_buckets + Hc.lr_buckets
@@ -1296,21 +1338,22 @@ def main(argv=None) -> int:
     require(bool(torch.isfinite(y_t).all()), "per-call floor: non-finite output")
 
     # ---------------- the kernels line ----------------
-    stream_cu = "htool_tpu_torch/csrc/stream_matvec.cu"
+    csrc = "htool_tpu_torch/csrc/"
+    # name: (entry point, source, all sources, the TPU kernel's pallas_call)
     sources = {
-        "tiled_bucket_matvec": ("htool_stream_matvec", stream_cu,
-                                [stream_cu, "htool_tpu_torch/csrc/tiled_matvec.cu",
-                                 "htool_tpu_torch/csrc/matvec_stream.cuh"],
+        "tiled_bucket_matvec": ("htool_stream_matvec", csrc + "stream_matvec.cu",
+                                [csrc + "stream_matvec.cu", csrc + "tiled_matvec.cu",
+                                 csrc + "matvec_stream.cuh", csrc + "matvec_block.cuh"],
                                 "htool_tpu/ops/tiled_matvec.py:585"),
-        "dense_bucket_matvec": ("htool_dense_bucket_matvec",
-                                "htool_tpu_torch/csrc/bucket_matvec.cu",
-                                ["htool_tpu_torch/csrc/bucket_matvec.cu",
-                                 "htool_tpu_torch/csrc/matvec_block.cuh"],
+        SPLIT: ("htool_stream_matvec", csrc + "stream_matvec.cu",
+                [csrc + "stream_matvec.cu", csrc + "matvec_stream.cuh"],
+                "htool_tpu/ops/tiled_matvec.py:215"),
+        "dense_bucket_matvec": ("htool_dense_bucket_stream", csrc + "bucket_stream.cu",
+                                [csrc + "bucket_stream.cu", csrc + "matvec_stream.cuh"],
                                 "htool_tpu/ops/bucket_matvec.py:179"),
-        "lr_bucket_matvec": ("htool_lr_bucket_stream", "htool_tpu_torch/csrc/bucket_lr_stream.cu",
-                             ["htool_tpu_torch/csrc/bucket_lr_stream.cu",
-                              "htool_tpu_torch/csrc/bucket_matvec.cu",
-                              "htool_tpu_torch/csrc/matvec_stream.cuh"],
+        "lr_bucket_matvec": ("htool_lr_bucket_stream", csrc + "bucket_stream.cu",
+                             [csrc + "bucket_stream.cu", csrc + "bucket_matvec.cu",
+                              csrc + "matvec_stream.cuh", csrc + "matvec_block.cuh"],
                              "htool_tpu/ops/bucket_matvec.py:258"),
     }
 
@@ -1320,23 +1363,22 @@ def main(argv=None) -> int:
         return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
     kernel_rows = []
-    for w in wrappers:
-        base, source, all_sources, replaces = sources[w.__name__]
+    for wname, (base, source, all_sources, replaces) in sources.items():
         for dt in DTYPES:
             name = str(dt).removeprefix("torch.")
-            st = stats.get((w.__name__, dt))
-            n_launch = path_launches.get((w.__name__, dt), 0)
+            st = stats.get((wname, dt))
+            n_launch = path_launches.get((wname, dt), 0)
             require(st is not None and st["terms"] > 0 and st["k1"]["terms"] > 0,
-                    f"{w.__name__} {name}: no term was timed at k = 8 and k = 1")
-            require(n_launch > 0, f"{w.__name__} {name}: not launched on a main path")
+                    f"{wname} {name}: no term was timed at k = 8 and k = 1")
+            require(n_launch > 0, f"{wname} {name}: not launched on a main path")
             bound_ms, bound_by = bound_of(st, dt)
             k1_bound_ms, k1_bound_by = bound_of(st["k1"], dt)
-            if dt.is_complex and w is tiled_bucket_matvec:
+            if dt.is_complex and wname == "tiled_bucket_matvec":
                 # the complex route of the same TPU kernel (apply_complex_plans)
                 replaces = "htool_tpu/ops/tiled_matvec.py:384"
-            by_k = path_launches_k.get((w.__name__, dt), {})
+            by_k = path_launches_k.get((wname, dt), {})
             kernel_rows.append(dict(
-                name=f"{w.__name__}[{name}]", entry_point=base + SUFFIX_OF[name], route="cuda",
+                name=f"{wname}[{name}]", entry_point=base + SUFFIX_OF[name], route="cuda",
                 source=source, sources=all_sources, replaces=replaces, launches=n_launch,
                 launches_by_k={str(k): c for k, c in sorted(by_k.items())},
                 max_abs_err=st["max_abs_err"], ms=st["ms"], plain_ms=st["plain_ms"],

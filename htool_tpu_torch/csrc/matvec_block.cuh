@@ -1,41 +1,40 @@
 // Scalar types and the one-block-per-CTA routines of the H-matrix product
 // kernels for NVIDIA Hopper (sm_90a).  The scalar overloads (cplx, mul_add,
-// conj_if, shfl_xor, atomic_add) serve every kernel; the block routines
-// (rowdot, colsum, apply_block) serve the one-launch kernels: tiled_matvec.cu
-// (planned low-rank terms too short for two launches; replaces
+// conj_if, shfl_xor, atomic_add) serve every kernel; the low-rank block
+// routine (apply_block, over rowdot and colsum) serves the one-launch
+// kernels, which keep the low-rank terms too short for two launches
+// (ops/cut.py::lr_split_wanted): tiled_matvec.cu (planned; replaces
 // htool_tpu/ops/tiled_matvec.py::_tiled_kernel) and bucket_matvec.cu
-// (unplanned dense terms and such low-rank terms; replaces
-// htool_tpu/ops/bucket_matvec.py::_dense_kernel and ::_lr_kernel).  They read
-// block entries from device memory straight into registers, which bounds
-// them well under the card's 3.35 TB/s at k = 8 (few bytes in flight once the
-// sums take the registers); matvec_stream.cuh is the streaming redesign that
-// the other terms run through.  Each routine applies one block of a bucket
-// to its input window and adds the result into its output window:
+// (unplanned; replaces htool_tpu/ops/bucket_matvec.py::_lr_kernel).  Every
+// dense term and every longer low-rank term runs the streaming core,
+// matvec_stream.cuh.  The routines read block entries from device memory
+// straight into registers, which bounds them well under the card's 3.35 TB/s
+// at k = 8 (few bytes in flight once the sums take the registers); the terms
+// they keep are short enough that a launch's and a call's fixed cost matter
+// more.  apply_block applies one low-rank block U [bm, r] · V [r, bn] of a
+// bucket to its input window and adds the result into its output window:
 //
-//   y[0 : out_w, 0 : kc] += op(B) · x[0 : in_w, 0 : kc]
+//   y[0 : out_w, 0 : kc] += op(U V) · x[0 : in_w, 0 : kc]
 //
-// where B is a dense block D [bm, bn] (op = D or Dᵀ) or a low-rank block
-// U [bm, r] · V [r, bn] (op applied as U (V x) or Vᵀ (Uᵀ x)).  x and y are
-// row-major with leading dimension k; a CTA handles up to KC of the k
-// right-hand-side columns.
+// (op applied as U (V x) or Vᵀ (Uᵀ x)).  x and y are row-major with leading
+// dimension k; a CTA handles up to KC of the k right-hand-side columns.
 //
 // The scalar S is float, double, or the interleaved complex type
 // cplx<float> / cplx<double> (the memory layout of complex64 / complex128
-// tensors).  For a complex S, `conj` applies the routines to conj(D), or to
-// conj(U) and conj(V): with `trans` that gives all of B, Bᵀ, conj(B), Bᴴ.
-// The entries are read as they are stored, 8 or 16 bytes each, once per
-// term; the conjugation is a sign flip in a register.  A complex sum goes to
-// y as two real atomicAdds, on the real and on the imaginary part.
+// tensors).  For a complex S, `conj` applies the routine to conj(U) and
+// conj(V): with `trans` that gives all of B, Bᵀ, conj(B), Bᴴ.  The entries
+// are read as they are stored, 8 or 16 bytes each, once per term; the
+// conjugation is a sign flip in a register.  A complex sum goes to y as two
+// real atomicAdds, on the real and on the imaginary part.
 //
-// Dense blocks run as row dots (a sub-warp of LW lanes per row, RW rows at
+// The two passes run as row dots (a sub-warp of LW lanes per row, RW rows at
 // a time so each x value loaded serves RW rows, x rows read as 16-byte
-// vectors) or column sums (consecutive threads on consecutive columns);
-// low-rank blocks as two such passes through a shared-memory intermediate t
-// (at most RCH rank rows at a time).  Results go to y with atomicAdd, which
-// issues as a fire-and-forget reduction, so no warp stalls on a read of the
-// output; the order of the additions, and so the rounding, varies from run
-// to run.  Shared memory holds only t and a reduction buffer, so blocks of
-// any width work.
+// vectors) or column sums (consecutive threads on consecutive columns)
+// through a shared-memory intermediate t (at most RCH rank rows at a time).
+// Results go to y with atomicAdd, which issues as a fire-and-forget
+// reduction, so no warp stalls on a read of the output; the order of the
+// additions, and so the rounding, varies from run to run.  Shared memory holds
+// only t and a reduction buffer, so blocks of any width work.
 
 #pragma once
 
@@ -48,9 +47,9 @@ constexpr int NT = 256;          // threads per CTA
 constexpr int NWARP = NT / 32;
 constexpr int RCH = 64;          // rank rows of a low-rank block per pass
 // Row-dot shape, chosen by timing variants on an H100 at n = 100k: a row of
-// c entries gets about c/8 lanes (16 for the 224-wide dense blocks, 2 for
-// rank-16 factor rows), and a sub-warp takes 4 rows at once (2 at k >= 8,
-// where 4 rows of 8 accumulators cost occupancy).
+// c entries gets about c/8 lanes (2 for rank-16 factor rows, 16 for a
+// 224-wide V row), and a sub-warp takes 4 rows at once (2 at k >= 8, where 4
+// rows of 8 accumulators cost occupancy).
 // The complex scalars keep these shapes and k = 8 in one column chunk (a
 // second chunk would read every block twice).  ptxas (CUDA 12.8, sm_90a) at
 // KC = 8: complex64 takes 128 registers in the tiled kernel (8 bytes of
@@ -277,26 +276,16 @@ __device__ void colsum(const S* __restrict__ A, int lda, int rows, int cols,
   }
 }
 
-// yb += op(B) · xb for block b of a bucket: dense (kind 0, data
-// [nb, bm, bn]) or low rank (kind 1, U [nb, bm, r], V [nb, r, bn]); op is B,
-// Bᵀ when trans, conj(B) when cj, Bᴴ with both (for low rank, cj conjugates
-// U and V).  Called by all threads of the CTA with the same
+// yb += op(U V) · xb for low-rank block b of a bucket (U [nb, bm, r], V
+// [nb, r, bn]); op is B, Bᵀ when trans, conj(B) when cj (conj(U) and
+// conj(V)), Bᴴ with both.  Called by all threads of the CTA with the same
 // arguments.  red is a [NT * KC] and tbuf a 16-byte aligned [RCH * KC]
 // shared buffer.
 template <typename S, int KC>
-__device__ __forceinline__ void apply_block(int kind, int trans, int cj, const S* data,
-                                            const S* Ub, const S* Vb, size_t b,
-                                            int bm, int bn, int r, const S* xb,
-                                            int ldx, S* yb, int ldy, int kc,
-                                            S* red, S* tbuf) {
-  if (kind == 0) {
-    const S* D = data + b * bm * bn;
-    if (!trans)
-      rowdot<S, KC>(D, bn, bm, bn, xb, ldx, yb, ldy, kc, cj);
-    else
-      colsum<S, KC>(D, bn, bm, bn, xb, ldx, yb, ldy, kc, cj, red);
-    return;
-  }
+__device__ __forceinline__ void apply_block(int trans, int cj, const S* Ub, const S* Vb,
+                                            size_t b, int bm, int bn, int r, const S* xb,
+                                            int ldx, S* yb, int ldy, int kc, S* red,
+                                            S* tbuf) {
   const S* U = Ub + b * bm * r;
   const S* V = Vb + b * r * bn;
   for (int r0 = 0; r0 < r; r0 += RCH) {

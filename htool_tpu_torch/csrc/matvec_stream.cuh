@@ -3,9 +3,10 @@
 //
 // It serves the planned kernel (stream_matvec.cu, behind
 // tiled_bucket_matvec; replaces htool_tpu/ops/tiled_matvec.py::_tiled_kernel
-// and its two-stage route build_tile_plan_lr_split) and the two-stage
-// unplanned low-rank kernel (bucket_lr_stream.cu, behind lr_bucket_matvec;
-// replaces htool_tpu/ops/bucket_matvec.py::_lr_kernel).
+// and its two-stage route build_tile_plan_lr_split) and the unplanned dense
+// and two-stage low-rank kernels (bucket_stream.cu, behind
+// dense_bucket_matvec and lr_bucket_matvec; replaces
+// htool_tpu/ops/bucket_matvec.py::_dense_kernel and ::_lr_kernel).
 //
 // One primitive: a row-major matrix A [R, C] per block, applied to an input
 // window and written or added to an output window,
@@ -51,12 +52,27 @@
 //   order of the additions, and so the rounding, varies from run to run) or
 //   to t with plain stores, as reals, consecutive lanes on consecutive
 //   addresses: one request per 32-byte sector of a row, not one per sum.
-// - No tensor cores: the package pins full float32 products
-//   (utils/precision.py), which rules out TF32 wgmma, and at k <= 8 the work
-//   is under the FP32/FP64 pipes' roofline.  FP64 mma / split-float32 for
-//   k >= 16 is a later item.
+// - float64 and complex128 at KC >= 4 run the inner loop on the FP64 tensor
+//   cores (mma.sync m8n8k4, IEEE double multiply-adds: one instruction per warp
+//   does the 256 of 8 DFMA per lane), which the FP64 pipe and the loop's loads had
+//   held back.  No ldmatrix exists for 64-bit types: lanes read their A and
+//   B fragments from the staged tiles themselves (N: 8 rows x 32 bytes on
+//   rows 16 bytes apart modulo 128; T: 4 rows x 64 bytes on rows 64 bytes
+//   apart, no bank conflicts).  complex128 reads a tile row as 2C reals;
+//   for N, B is the real 2C x 2KC matrix of x (rows [xr, xi] and [-xi, xr],
+//   signs flipped by conj), built in registers from the staged x, so the
+//   sums come out as (re, im) pairs; for T, M runs over the slab's reals and
+//   lanes swap fragment rows to form re = Ar xr - Ai xi, im = Ar xi + Ai xr.
+//   The host picks the loop (mma_wanted).  float32 products stay on FP32
+//   multiply-adds: the package pins full float32 products
+//   (utils/precision.py), which rules out TF32 and split-float32 is a later
+//   item.
 
 #pragma once
+
+#include <stdlib.h>
+
+#include <type_traits>
 
 #include "matvec_block.cuh"
 
@@ -135,12 +151,42 @@ struct StreamGeom {
   int cwt;     // T: threads across a slab (a power of two >= cut)
   int xfit;    // N: the whole x window of a panel fits one slot
   int vecA;    // A may be copied 16 bytes at a time
+  int mma;     // the inner loop: 0 multiply-adds, else the depth KS of the FP64 mma m16n8kKS
+  int kg;      // mma: warps that split the reduced dimension (their sums meet in shared memory)
 };
+
+// FP64 tensor-core loop: a warp holds the sums of MMA_M16_T m16 tiles (T:
+// 16 reals across the slab each); N: of one m16 tile (16 rows)
+constexpr int MMA_M16_T = 2;
+
+// Which inner loop a launch runs (0: multiply-adds; else the depth KS of
+// mma.sync m16n8kKS): the FP64 tensor cores for float64 and complex128 at
+// KC >= 4, except float64 applied transposed at KC = 4, and where a slab of a
+// transposed matrix fits the warps' sums (complex128: 128 columns).  m16n8k16
+// measured fastest of m16n8k4/8/16 (and m8n8k4, 1.1 - 8 times slower than
+// multiply-adds); the float64 transposed launches at KC = 4 lose 1 - 11 % on
+// the tensor cores (tools/torch_kernel_probe.py --phases loop; PERF.md
+// section 6).
+template <typename S>
+inline int mma_wanted(bool trans, int KC, int tc) {
+  using Real = typename RealOf<S>::type;
+  constexpr int NC = sizeof(S) / sizeof(Real);
+  if (sizeof(Real) != 8 || KC < 4) return 0;
+  int ks = 16;
+  if (const char* e = getenv("HTOOL_EXP_LOOP")) {
+    if (e[0] == 'f') return 0;
+    ks = atoi(e + 1);
+  } else if (trans && NC == 1 && KC == 4) {
+    return 0;
+  }
+  return !trans || (tc * NC + 15) / 16 <= MMA_M16_T * NWARP ? ks : 0;
+}
 
 template <typename S>
 inline int make_geom(StreamGeom& g, bool trans, int KC, int R, int C, int P, int cut,
                      const void* A) {
   constexpr int item = sizeof(S), per = 16 / item;
+  constexpr int NC = item / sizeof(typename RealOf<S>::type);
   const int RW = item == 16 && KC == 8 ? 1 : 2;  // ROWS_PER_READ<S, KC>
   const int ext = trans ? C : R;
   if (R <= 0 || C <= 0 || P <= 0 || cut <= 0 || (long long)P * cut < ext ||
@@ -149,6 +195,8 @@ inline int make_geom(StreamGeom& g, bool trans, int KC, int R, int C, int P, int
   g.R = R; g.C = C; g.P = P; g.cut = cut;
   g.vecA = (reinterpret_cast<uintptr_t>(A) % 16 == 0) && ((long long)C * item % 16 == 0) &&
            (!trans || P == 1 || (long long)cut * item % 16 == 0);
+  g.mma = mma_wanted<S>(trans, KC, min(cut, C));
+  g.kg = 1;
   const int xr = XSLOT_BYTES / (KC * item);  // x rows a slot holds
   if (!trans) {
     // few lanes per row (4 when the panel has rows enough for all sub-warps):
@@ -158,9 +206,19 @@ inline int make_geom(StreamGeom& g, bool trans, int KC, int R, int C, int P, int
     int lw = 4;
     while (lw > 1 && lw > C) lw >>= 1;
     while (lw < 32 && NWARP * (32 / lw) * RW > cut) lw <<= 1;
-    const int rp = NWARP * (32 / lw) * RW;  // rows of one pass of the CTA
+    int rp = NWARP * (32 / lw) * RW;  // rows of one pass of the CTA
+    if (g.mma) {
+      // m16 tiles of rows over mg warps, the row's reals over kg = 8 / mg
+      // warps: few rows (stage A's rank rows) still give every warp work
+      int mg = 1;
+      while (mg < NWARP && mg * 16 < min(cut, R)) mg <<= 1;
+      g.kg = NWARP / mg;
+      rp = mg * 16;
+    }
     const int tcb = min(TILE_BYTES / rp - 16, CHUNK_BYTES) / 16 * 16;
     g.tc = min(C, max(per, tcb / item));
+    if (g.mma && g.tc < C)  // chunks of whole 16-real steps
+      g.tc = max(16 / NC, g.tc / (16 / NC) * (16 / NC));
     g.nch = (C + g.tc - 1) / g.tc;
     g.srow = (g.tc + per - 1) / per * per + per;
     g.xfit = C <= xr;
@@ -173,16 +231,45 @@ inline int make_geom(StreamGeom& g, bool trans, int KC, int R, int C, int P, int
   } else {
     if (cut > NT) return (int)cudaErrorInvalidValue;
     g.tc = min(cut, C); g.nch = 1; g.lw = 0; g.xfit = 0;
-    g.srow = (g.tc + per - 1) / per * per + per;
-    int cwt = 1;
-    while (cwt < g.tc) cwt <<= 1;
-    g.cwt = cwt;
-    const int ng = NT / cwt;
-    int tr = min(TILE_BYTES / (g.srow * item), xr);
-    if (tr >= 4 * ng) tr = tr / (4 * ng) * (4 * ng);
-    g.tr = tr;
+    if (g.mma) {
+      // rows 64 bytes apart modulo 128: the 4 rows x 64 bytes of an A
+      // fragment fall on distinct banks
+      const int unit = 128 / item, half = 64 / item;
+      g.srow = half + (max(g.tc - half, 0) + unit - 1) / unit * unit;
+      const int mtiles = (g.tc * NC + 15) / 16;  // m16 tiles across the slab
+      int mg = 1;
+      while (mg < mtiles && mg < NWARP) mg <<= 1;
+      g.kg = NWARP / mg;
+      g.cwt = 0;
+      int tr = min(TILE_BYTES / (g.srow * item), xr);
+      const int step = g.mma * g.kg;
+      if (tr >= step) tr = tr / step * step;
+      g.tr = tr;
+    } else {
+      g.srow = (g.tc + per - 1) / per * per + per;
+      int cwt = 1;
+      while (cwt < g.tc) cwt <<= 1;
+      g.cwt = cwt;
+      const int ng = NT / cwt;
+      int tr = min(TILE_BYTES / (g.srow * item), xr);
+      if (tr >= 4 * ng) tr = tr / (4 * ng) * (4 * ng);
+      g.tr = tr;
+    }
   }
   return g.tr >= 1 ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Call f(std::integral_constant<int, KS>) with the loop the geometry chose:
+// the launch of kernel<..., KS> (KS > 0 only where it is compiled: f64 and
+// complex128 at KC >= 4).
+template <typename S, int KC, typename F>
+inline int with_loop(const StreamGeom& g, F&& f) {
+  if constexpr (sizeof(typename RealOf<S>::type) == 8 && KC >= 4) {
+    if (g.mma == 4) return f(std::integral_constant<int, 4>{});
+    if (g.mma == 8) return f(std::integral_constant<int, 8>{});
+    if (g.mma == 16) return f(std::integral_constant<int, 16>{});
+  }
+  return f(std::integral_constant<int, 0>{});
 }
 
 // Let a streaming kernel use STREAM_SMEM bytes of dynamic shared memory and
@@ -240,6 +327,73 @@ struct XLayout {
     }
   }
 };
+
+// FP64 tensor cores: D [16 x 8] += A [16 x KS] · B [KS x 8] for a warp, in
+// IEEE double multiply-adds.  Lane 4 g + t holds a[i] = A[g + 8 (i % 2)][t +
+// 4 (i / 2)], b[i] = B[t + 4 i][g], and d = D[g][2t], D[g][2t + 1],
+// D[g + 8][2t], D[g + 8][2t + 1].
+template <int KS>
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[KS / 2],
+                                        const double (&b)[KS / 4]) {
+  if constexpr (KS == 4)
+    asm volatile(
+        "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+        "{%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+  else if constexpr (KS == 8)
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
+          "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// B fragment of n-tile nt for op N: B[kr][n], n = nt * 8 + g, from x rows
+// xrow0 + .. of a slot.  float64: x[kr][n].  complex128: the tile row is read
+// as 2C reals (ar, ai, ..), and B is the real 2C x 2KC matrix of x, rows
+// [xr, xi] for ar and [-xi, xr] for ai (signs flipped by conj), so D comes
+// out as (re, im) pairs.  Zero past the tile's columns (kv false) and past KC.
+template <typename S, int KC>
+__device__ __forceinline__ double frag_b_n(const S* xs, int xrow0, int kr, bool kv, int nt,
+                                           int g, int cj) {
+  using XL = XLayout<S, KC>;
+  if constexpr (std::is_same<S, double>::value) {
+    const int j = nt * 8 + g;
+    if (!kv || j >= KC) return 0.0;
+    return xs[((j / XL::VW) * XL::XR + xrow0 + kr) * XL::VW + j % XL::VW];
+  } else {
+    const int j = nt * 4 + (g >> 1);
+    if (!kv || j >= KC) return 0.0;
+    const S v = xs[j * XL::XR + xrow0 + (kr >> 1)];
+    if (!(kr & 1)) return g & 1 ? v.im : v.re;
+    return g & 1 ? (cj ? -v.re : v.re) : (cj ? v.im : -v.im);
+  }
+}
+
+// B fragment of n-tile nt for op T: x row kr of the slot; complex128: column
+// j = nt * 4 + g / 2, its real part for even g, its imaginary part for odd g.
+template <typename S, int KC>
+__device__ __forceinline__ double frag_b_t(const S* xs, int kr, bool kv, int nt, int g) {
+  using XL = XLayout<S, KC>;
+  if constexpr (std::is_same<S, double>::value) {
+    const int j = nt * 8 + g;
+    if (!kv || j >= KC) return 0.0;
+    return xs[((j / XL::VW) * XL::XR + kr) * XL::VW + j % XL::VW];
+  } else {
+    const int j = nt * 4 + (g >> 1);
+    if (!kv || j >= KC) return 0.0;
+    const S v = xs[j * XL::XR + kr];
+    return g & 1 ? v.im : v.re;
+  }
+}
 
 // copy rows [0, nr) x columns [0, nc) of a row-major matrix at src (leading
 // dimension lda) into a tile with row stride srow
@@ -343,7 +497,7 @@ __device__ __forceinline__ void advance(Cursor& c, const StreamGeom& g, const Ad
 // Stream the slots [s_begin, s_end) of one CTA (at most MAX_SLOTS).  X [., ldx] and Y [., ldy]
 // are row-major; the CTA handles columns [j0, j0 + kc), kc <= KC.  smem is
 // STREAM_SMEM bytes, 16-byte aligned.
-template <typename S, int KC, bool TRANS, typename Addr>
+template <typename S, int KC, bool TRANS, int KS, typename Addr>
 __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj, int store,
                            const Addr& addr, int s_begin, int s_end,
                            const S* __restrict__ X, int ldx, S* Y, int ldy, int j0, int kc,
@@ -385,10 +539,19 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
   const int sl = lane % lw, wsub = warp * sub_n + lane / lw;
   const int rpq = NWARP * sub_n;  // rows of a pass per q
   // T: cwt threads across the slab, NT / cwt groups down the rows
-  const int cwt = TRANS ? g.cwt : 1;
+  constexpr bool MMA = KS > 0;  // the inner loop on the FP64 tensor cores
+  const int cwt = TRANS && !MMA ? g.cwt : 1;
   const int cl = threadIdx.x % cwt, grp = threadIdx.x / cwt, ng = NT / cwt;
 
   S acc[RW][KC];  // T uses acc[0]
+  // the tensor-core loop's sums: D fragments [m16 tile][n-tile] (N: one m16 tile)
+  constexpr int NTL = (KC * NC + 7) / 8;  // n-tiles of 8 reals across the k columns
+  constexpr int KQ = MMA ? KS / 4 : 1;    // K of an mma step per lane
+  double macc[MMA ? MMA_M16_T : 1][MMA ? NTL : 1][4];
+  const int g8 = lane >> 2, t4 = lane & 3;  // the lane's place in an mma fragment
+  // mma: warp w takes k-group w % kg and row (N) or reals (T) group w / kg
+  const int kg = MMA ? g.kg : 1, mg = NWARP / kg;
+  const int kgi = warp % kg, mgi = warp / kg;
 
   __shared__ SlotTable tab;
   load_slots(tab, g, addr, s_begin, s_end);
@@ -414,56 +577,119 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
 
     const int st = t % STAGES;
     const S* tile = tiles + st * TILE_S;
-    if (!TRANS) {
+    if constexpr (!TRANS) {
       const int nr = min(g.tr, cons.hi - cons.row);
       const int c0 = cons.ch * g.tc, nc = min(g.tc, g.C - c0);
       const S* xs = xslots + (g.xfit ? cons.xn % STAGES : st) * XSLOT_S;
       const int xi0 = g.xfit ? c0 : 0;
-      for (int pass0 = 0; pass0 < nr; pass0 += rpq * RW) {
-        if (cons.ch == 0) {
+      if constexpr (MMA) {
+        // M = rows (warp group mgi: an m16 tile of the pass), K = the tile
+        // row's reals (k-group kgi: steps kgi, kgi + kg, ..), N = the k
+        // columns, as (re, im) pairs for complex128
+        const Real* tr_ = reinterpret_cast<const Real*>(tile);
+        const int srr = g.srow * NC, kn = nc * NC, rp = mg * 16;
+        double* redd = reinterpret_cast<double*>(red);
+        for (int pass0 = 0; pass0 < nr; pass0 += rp) {
+          const int rb = pass0 + mgi * 16;
+          if (cons.ch == 0) {
 #pragma unroll
-          for (int q = 0; q < RW; ++q)
+            for (int nt = 0; nt < NTL; ++nt)
 #pragma unroll
-            for (int j = 0; j < KC; ++j) acc[q][j] = S(0);
-        }
-        int rq[RW];
-#pragma unroll
-        for (int q = 0; q < RW; ++q) rq[q] = pass0 + q * rpq + wsub;
-        const S* ap[RW];
-#pragma unroll
-        for (int q = 0; q < RW; ++q) ap[q] = tile + (size_t)min(rq[q], nr - 1) * g.srow;
+              for (int e = 0; e < 4; ++e) macc[0][nt][e] = 0.0;
+          }
+          if (rb < nr) {  // the whole warp
+            const Real* a0 = tr_ + (size_t)min(rb + g8, nr - 1) * srr;
+            const Real* a1 = tr_ + (size_t)min(rb + 8 + g8, nr - 1) * srr;
 #pragma unroll 2
-        for (int c = sl; c < nc; c += lw) {
-          S xv[KC];
-          XL::load(xs, xi0 + c, xv);
+            for (int kk = KS * kgi; kk < kn; kk += KS * kg) {
+              double af[2 * KQ], bf[NTL][KQ];
 #pragma unroll
-          for (int q = 0; q < RW; ++q) {
-            const S av = conj_if(ap[q][c], cj);
+              for (int q = 0; q < KQ; ++q) {
+                const int kr = kk + t4 + 4 * q;
+                const bool kv = kr < kn;
+                af[2 * q] = kv ? a0[kr] : 0.0;
+                af[2 * q + 1] = kv ? a1[kr] : 0.0;
 #pragma unroll
-            for (int j = 0; j < KC; ++j) mul_add(acc[q][j], av, xv[j]);
+                for (int nt = 0; nt < NTL; ++nt)
+                  bf[nt][q] = frag_b_n<S, KC>(xs, xi0, kr, kv, nt, g8, cj);
+              }
+#pragma unroll
+              for (int nt = 0; nt < NTL; ++nt) mma_f64<KS>(macc[0][nt], af, bf[nt]);
+            }
+          }
+          if (cons.ch == g.nch - 1) {
+            // the k-groups' sums meet in shared memory, one n-tile (8 reals
+            // a row) a round; consecutive threads then add consecutive reals
+            // of a row into y
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                redd[(kgi * rp + mgi * 16 + g8 + 8 * (e >> 1)) * 8 + 2 * t4 + (e & 1)] =
+                    macc[0][nt][e];
+              __syncthreads();
+              for (int e = threadIdx.x; e < rp * 8; e += NT) {
+                const int r = e >> 3, idx = nt * 8 + (e & 7);
+                if (pass0 + r < nr && idx < kc * NC) {
+                  double sum = 0.0;
+                  for (int gg = 0; gg < kg; ++gg) sum += redd[(gg * rp + r) * 8 + (e & 7)];
+                  Real* o = reinterpret_cast<Real*>(
+                      Y + (size_t)(cons.oo + (cons.row - cons.lo) + pass0 + r) * ldy + j0);
+                  if (store) o[idx] = sum;
+                  else atomicAdd(o + idx, sum);
+                }
+              }
+              __syncthreads();
+            }
           }
         }
-        if (cons.ch == g.nch - 1) {
-          // butterfly over the sub-warp's lanes: they all end with the sums,
-          // and lane sl writes the reals sl, sl + lw, .. of each row, so that
-          // consecutive lanes write consecutive addresses
+      } else {
+        for (int pass0 = 0; pass0 < nr; pass0 += rpq * RW) {
+          if (cons.ch == 0) {
 #pragma unroll
-          for (int q = 0; q < RW; ++q)
+            for (int q = 0; q < RW; ++q)
 #pragma unroll
-            for (int j = 0; j < KC; ++j)
-              for (int off = lw >> 1; off > 0; off >>= 1)
-                acc[q][j] += shfl_xor(acc[q][j], off);
+              for (int j = 0; j < KC; ++j) acc[q][j] = S(0);
+          }
+          int rq[RW];
 #pragma unroll
-          for (int q = 0; q < RW; ++q)
-            if (rq[q] < nr) {
-              Real* o = reinterpret_cast<Real*>(
-                  Y + (size_t)(cons.oo + (cons.row - cons.lo) + rq[q]) * ldy + j0);
-              for (int idx = sl; idx < kc * NC; idx += lw) {
-                const Real v = real_at(acc[q], idx);
-                if (store) o[idx] = v;
-                else atomicAdd(o + idx, v);
-              }
+          for (int q = 0; q < RW; ++q) rq[q] = pass0 + q * rpq + wsub;
+          const S* ap[RW];
+#pragma unroll
+          for (int q = 0; q < RW; ++q) ap[q] = tile + (size_t)min(rq[q], nr - 1) * g.srow;
+#pragma unroll 2
+          for (int c = sl; c < nc; c += lw) {
+            S xv[KC];
+            XL::load(xs, xi0 + c, xv);
+#pragma unroll
+            for (int q = 0; q < RW; ++q) {
+              const S av = conj_if(ap[q][c], cj);
+#pragma unroll
+              for (int j = 0; j < KC; ++j) mul_add(acc[q][j], av, xv[j]);
             }
+          }
+          if (cons.ch == g.nch - 1) {
+            // butterfly over the sub-warp's lanes: they all end with the sums,
+            // and lane sl writes the reals sl, sl + lw, .. of each row, so that
+            // consecutive lanes write consecutive addresses
+#pragma unroll
+            for (int q = 0; q < RW; ++q)
+#pragma unroll
+              for (int j = 0; j < KC; ++j)
+                for (int off = lw >> 1; off > 0; off >>= 1)
+                  acc[q][j] += shfl_xor(acc[q][j], off);
+#pragma unroll
+            for (int q = 0; q < RW; ++q)
+              if (rq[q] < nr) {
+                Real* o = reinterpret_cast<Real*>(
+                    Y + (size_t)(cons.oo + (cons.row - cons.lo) + rq[q]) * ldy + j0);
+                for (int idx = sl; idx < kc * NC; idx += lw) {
+                  const Real v = real_at(acc[q], idx);
+                  if (store) o[idx] = v;
+                  else atomicAdd(o + idx, v);
+                }
+              }
+          }
         }
       }
     } else {
@@ -471,10 +697,53 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
       const int cw = cons.hi - cons.lo;
       const S* xs = xslots + st * XSLOT_S;
       if (cons.row == 0) {
+        if constexpr (MMA) {
 #pragma unroll
-        for (int j = 0; j < KC; ++j) acc[0][j] = S(0);
+          for (int i = 0; i < MMA_M16_T; ++i)
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) macc[i][nt][e] = 0.0;
+        } else {
+#pragma unroll
+          for (int j = 0; j < KC; ++j) acc[0][j] = S(0);
+        }
       }
-      if (cl < cw) {
+      if constexpr (MMA) {
+        // M = the slab's reals (warp group mgi: m16 tiles mgi, mgi + mg), K =
+        // the tile's rows (k-group kgi), N = the k columns (complex128: x's
+        // re and im parts)
+        const Real* tr_ = reinterpret_cast<const Real*>(tile);
+        const int srr = g.srow * NC, mreal = cw * NC;
+#pragma unroll 2
+        for (int kk = KS * kgi; kk < nr; kk += KS * kg) {
+          int kr[KQ];
+          bool kv[KQ];
+          double bf[NTL][KQ];
+#pragma unroll
+          for (int q = 0; q < KQ; ++q) {
+            kr[q] = kk + t4 + 4 * q;
+            kv[q] = kr[q] < nr;
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt) bf[nt][q] = frag_b_t<S, KC>(xs, kr[q], kv[q], nt, g8);
+          }
+#pragma unroll
+          for (int i = 0; i < MMA_M16_T; ++i) {
+            const int m0 = (mgi + i * mg) * 16;
+            if (m0 >= mreal) continue;  // the whole warp
+            double af[2 * KQ];
+#pragma unroll
+            for (int q = 0; q < KQ; ++q)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int m = m0 + 8 * h + g8;
+                af[2 * q + h] = kv[q] && m < mreal ? tr_[(size_t)kr[q] * srr + m] : 0.0;
+              }
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt) mma_f64<KS>(macc[i][nt], af, bf[nt]);
+          }
+        }
+      } else if (cl < cw) {
 #pragma unroll 4
         for (int i = grp; i < nr; i += ng) {
           const S av = conj_if(tile[(size_t)i * g.srow + cl], cj);
@@ -491,17 +760,60 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
         const Real* redr = reinterpret_cast<const Real*>(red);
         constexpr int JR_MAX = RED_BYTES / (NT * (int)sizeof(S));
         constexpr int JR = JR_MAX < KC ? JR_MAX : KC;  // columns per round
+        // partial sums of column cc of group gg at red[(gg * stride + cc) * JR]
+        const int ngr = MMA ? kg : ng, stride = MMA ? cw : cwt;
+        if constexpr (MMA && NC == 2) {
+          // lane 4 g + t holds (Ar xr, Ar xi) for even g and (Ai xr, Ai xi) for
+          // odd g, of column g / 2 of the m-tile's half and k column t of the
+          // n-tile: lanes take their partner's (lane ^ 4) and the even ones
+          // form re and im (conj: Ai -> -Ai)
+#pragma unroll
+          for (int i = 0; i < MMA_M16_T; ++i)
+#pragma unroll
+            for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const double p0 = shfl_xor(macc[i][nt][2 * h], 4);
+                const double p1 = shfl_xor(macc[i][nt][2 * h + 1], 4);
+                macc[i][nt][2 * h] += cj ? p1 : -p1;
+                macc[i][nt][2 * h + 1] += cj ? -p0 : p0;
+              }
+        }
 #pragma unroll
         for (int jb = 0; jb < KC; jb += JR) {
+          if constexpr (MMA) {
 #pragma unroll
-          for (int jj = 0; jj < JR; ++jj) red[(grp * cwt + cl) * JR + jj] = acc[0][jb + jj];
+            for (int i = 0; i < MMA_M16_T; ++i)
+#pragma unroll
+              for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int m = (mgi + i * mg) * 16 + 8 * h + g8;
+                  if constexpr (NC == 1) {
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                      const int j = nt * 8 + 2 * t4 + e;
+                      if (m < cw && j >= jb && j < jb + JR)
+                        red[(kgi * cw + m) * JR + j - jb] = S(macc[i][nt][2 * h + e]);
+                    }
+                  } else {
+                    const int j = nt * 4 + t4;
+                    if (!(g8 & 1) && (m >> 1) < cw && j >= jb && j < jb + JR)
+                      red[(kgi * cw + (m >> 1)) * JR + j - jb] =
+                          S(macc[i][nt][2 * h], macc[i][nt][2 * h + 1]);
+                  }
+                }
+          } else {
+#pragma unroll
+            for (int jj = 0; jj < JR; ++jj) red[(grp * cwt + cl) * JR + jj] = acc[0][jb + jj];
+          }
           __syncthreads();
           const int nreal = min(JR, kc - jb) * NC;  // reals to write per output row
           for (int e = threadIdx.x; e < cw * JR * NC; e += NT) {
             const int cc = e / (JR * NC), w = e % (JR * NC);
             if (w < nreal) {
               Real sum = Real(0);
-              for (int gg = 0; gg < ng; ++gg) sum += redr[((gg * cwt + cc) * JR) * NC + w];
+              for (int gg = 0; gg < ngr; ++gg) sum += redr[((gg * stride + cc) * JR) * NC + w];
               Real* dst = o + ((size_t)cc * ldy + jb) * NC + w;
               if (store) *dst = sum;
               else atomicAdd(dst, sum);

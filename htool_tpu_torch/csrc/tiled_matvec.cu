@@ -80,7 +80,7 @@ __global__ void __launch_bounds__(NT) tiled_matvec_kernel(Params<S> p) {
   for (int s = step * p.G; s < (step + 1) * p.G; ++s) {
     const int b = p.blk[s];
     if (b < 0) continue;  // padding slot of the step's last group
-    apply_block<S, KC>(1, p.trans, p.conj, nullptr, p.U, p.V, b, p.bm, p.bn, p.r,
+    apply_block<S, KC>(p.trans, p.conj, p.U, p.V, b, p.bm, p.bn, p.r,
                        p.x + (size_t)p.in_off[s] * p.k + j0, p.k,
                        p.y + (size_t)p.out_off[s] * p.k + j0, p.k, kc, red, tbuf);
   }

@@ -66,8 +66,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                 vp, vp],
         "htool_lr_bucket_stream": [ci, ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp, ll, ci,
                                    vp, ll, vp, ci, ci, ci, ci, ci, ci, ci, vp],
-        "htool_dense_bucket_matvec": [ci, ci, vp, ci, ci, ci, vp, vp, ll, ll, vp, ll,
-                                      ci, vp, ll, vp],
+        "htool_dense_bucket_stream": [ci, ci, vp, ci, ci, ci, vp, vp, ll, ll, vp, ll, ci, vp,
+                                      ll, ci, ci, ci, vp],
         "htool_lr_bucket_matvec": [ci, ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp,
                                    ll, ci, vp, ll, vp],
     }

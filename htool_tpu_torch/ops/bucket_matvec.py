@@ -14,19 +14,21 @@ are the bucket's own ``t_off``/``s_off``; ``in_root``/``out_root`` are the
 root offsets a partition-restricted block row subtracts on its local side.
 
 The Pallas kernels walk the blocks on a sequential grid with x and y
-resident in VMEM.  The Hopper kernels add into y with atomics.  A dense
-term, and a short low-rank term, run one block per CTA
-(``htool_tpu_torch/csrc/bucket_matvec.cu``; a low-rank block goes through a
-shared-memory intermediate).  Longer low-rank terms
-(:func:`..ops.cut.lr_split_wanted`, by the bytes of a block and of the
-bucket and by k) run in two stages
-(``csrc/bucket_lr_stream.cu``): ``t = op(V)·x`` (``op(U)ᵀ·x`` when
-transposed) into a staging tensor ``[nb·r_pad, k]`` that the wrapper
-allocates, then ``y += op(U)·t``, each stage cut by bytes
+resident in VMEM.  The Hopper kernels add into y with atomics and stream
+the blocks through shared memory (``htool_tpu_torch/csrc/bucket_stream.cu``
+over ``csrc/matvec_stream.cuh``), with the work cut by bytes
 (:func:`..ops.cut.cut_rule`: P panels per block along the output dimension,
 G panels per CTA), so the grid is ``(nb·P/G, k chunks)`` whatever the
-bucket.  Not ported: the VMEM gate ``pallas_matvec_ok`` and the
-``HTOOL_TPU_PALLAS`` switch.
+bucket.  A dense term is one launch over its blocks.  A low-rank term runs
+in two stages, ``t = op(V)·x`` (``op(U)ᵀ·x`` when transposed) into a
+staging tensor ``[nb·r_pad, k]`` that the wrapper allocates, then
+``y += op(U)·t``, each stage cut by the same rule; a term so short that the
+second launch costs more than the streaming saves
+(:func:`..ops.cut.lr_split_wanted`, by the bytes of a block and of the
+bucket and by k) runs one block per CTA in one launch
+(``csrc/bucket_matvec.cu``, through a shared-memory intermediate).  Not
+ported: the VMEM gate ``pallas_matvec_ok`` and the ``HTOOL_TPU_PALLAS``
+switch.
 
 The wrappers take float32, float64, complex64 or complex128 blocks of the
 same dtype as x; the complex kernels read interleaved entries as PyTorch
@@ -153,10 +155,11 @@ def dense_bucket_matvec(data, in_off, out_off, x_pad, trans: bool, out_len: int,
     nb, bm, bn = (int(s) for s in data.shape)
     if nb == 0 or k == 0:
         return y
-    _launch(dense_bucket_matvec, "htool_dense_bucket_matvec",
+    _launch(dense_bucket_matvec, "htool_dense_bucket_stream",
             (int(trans), int(bool(conj)), data.data_ptr(), nb, bm, bn, in_off.data_ptr(),
              out_off.data_ptr(), int(in_root), int(out_root), x_pad.data_ptr(),
-             int(x_pad.shape[0]), k, y.data_ptr(), int(out_len)), x_pad)
+             int(x_pad.shape[0]), k, y.data_ptr(), int(out_len),
+             *_dense_route(nb, bm, bn, data.element_size(), bool(trans))), x_pad)
     return y
 
 
@@ -189,6 +192,13 @@ def lr_bucket_matvec(U, V, in_off, out_off, x_pad, trans: bool, out_len: int,
     _launch(lr_bucket_matvec, "htool_lr_bucket_stream", common + (t.data_ptr(), *route), x_pad,
             cuda_launches=2)
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_route(nb, bm, bn, item, trans):
+    """The cut (P, cut, G) of a dense bucket's blocks: depends only on its
+    shape."""
+    return tuple(cut_rule(nb, bm, bn, item, trans))
 
 
 @functools.lru_cache(maxsize=None)
