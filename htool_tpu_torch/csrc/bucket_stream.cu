@@ -64,13 +64,13 @@ struct BucketAddr {
   }
 };
 
-template <typename S, int KC, bool TRANS, int KS>
+template <typename S, int KC, bool TRANS, bool MMA>
 __global__ void __launch_bounds__(NT, CTAS_PER_SM)
 bucket_stream_kernel(StreamGeom g, const S* A, int cj, int store, BucketAddr addr, int G,
                      const S* x, int k, S* y) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int j0 = blockIdx.y * KC;
-  stream_run<S, KC, TRANS, KS>(g, A, cj, store, addr, blockIdx.x * G, (blockIdx.x + 1) * G, x,
+  stream_run<S, KC, TRANS, MMA>(g, A, cj, store, addr, blockIdx.x * G, (blockIdx.x + 1) * G, x,
                                 k, y, k, j0, min(KC, k - j0), smem);
 }
 
@@ -83,8 +83,8 @@ int stage(int cj, int store, const void* A, int nb, int R, int C, int P, int cut
   if (G <= 0 || G > MAX_SLOTS) return (int)cudaErrorInvalidValue;
   if (int err = make_geom<S>(g, TRANS, KC, R, C, P, cut, A)) return err;
   addr.total = nb * P;
-  return with_loop<S, KC>(g, [&](auto ks) {
-    constexpr auto kernel = bucket_stream_kernel<S, KC, TRANS, decltype(ks)::value>;
+  return with_loop<S, KC>(g, [&](auto mma) {
+    constexpr auto kernel = bucket_stream_kernel<S, KC, TRANS, decltype(mma)::value>;
     if (int err = configure_stream_kernel<kernel>()) return err;
     dim3 grid((addr.total + G - 1) / G, (k + KC - 1) / KC);
     kernel<<<grid, NT, STREAM_SMEM, stream>>>(g, static_cast<const S*>(A), cj, store, addr, G,

@@ -53,24 +53,26 @@
 //   to t with plain stores, as reals, consecutive lanes on consecutive
 //   addresses: one request per 32-byte sector of a row, not one per sum.
 // - float64 and complex128 at KC >= 4 run the inner loop on the FP64 tensor
-//   cores (mma.sync m8n8k4, IEEE double multiply-adds: one instruction per warp
-//   does the 256 of 8 DFMA per lane), which the FP64 pipe and the loop's loads had
-//   held back.  No ldmatrix exists for 64-bit types: lanes read their A and
-//   B fragments from the staged tiles themselves (N: 8 rows x 32 bytes on
-//   rows 16 bytes apart modulo 128; T: 4 rows x 64 bytes on rows 64 bytes
-//   apart, no bank conflicts).  complex128 reads a tile row as 2C reals;
-//   for N, B is the real 2C x 2KC matrix of x (rows [xr, xi] and [-xi, xr],
-//   signs flipped by conj), built in registers from the staged x, so the
-//   sums come out as (re, im) pairs; for T, M runs over the slab's reals and
-//   lanes swap fragment rows to form re = Ar xr - Ai xi, im = Ar xi + Ai xr.
-//   The host picks the loop (mma_wanted).  float32 products stay on FP32
-//   multiply-adds: the package pins full float32 products
-//   (utils/precision.py), which rules out TF32 and split-float32 is a later
+//   cores (mma.sync m16n8k16, IEEE double multiply-adds: 2048 per warp
+//   instruction, where a lane's DFMA does one), which the FP64 pipe and the
+//   loop's loads had held back; the sm_80 shape m8n8k4 was slower than
+//   multiply-adds here.  No ldmatrix exists for 64-bit types: lanes read
+//   their A and B fragments from the staged tiles themselves (N: 8 rows x 32
+//   bytes, rows 16 bytes apart modulo 128; T: 4 rows x 64 bytes, rows 64
+//   bytes apart: no bank conflicts).  N: warps take m16 tiles of rows and,
+//   where a panel has few rows (stage A's rank rows), split the row's reals
+//   between them; their sums meet in shared memory, and consecutive threads
+//   add consecutive reals of a row into y.  complex128 reads a tile row as 2C
+//   reals; for N, B is the real 2C x 2KC matrix of x (rows [xr, xi] and [-xi,
+//   xr], signs flipped by conj), built in registers from the staged x, so
+//   the sums come out as (re, im) pairs; for T, M runs over the slab's reals
+//   and lanes swap fragment rows to form re = Ar xr - Ai xi, im = Ar xi +
+//   Ai xr.  The host picks the loop (mma_wanted).  float32 products stay on
+//   FP32 multiply-adds: the package pins full float32 products
+//   (utils/precision.py), which rules out TF32, and split-float32 is a later
 //   item.
 
 #pragma once
-
-#include <stdlib.h>
 
 #include <type_traits>
 
@@ -151,35 +153,31 @@ struct StreamGeom {
   int cwt;     // T: threads across a slab (a power of two >= cut)
   int xfit;    // N: the whole x window of a panel fits one slot
   int vecA;    // A may be copied 16 bytes at a time
-  int mma;     // the inner loop: 0 multiply-adds, else the depth KS of the FP64 mma m16n8kKS
+  int mma;     // the inner loop: 0 multiply-adds, else the FP64 tensor cores (mma_wanted)
   int kg;      // mma: warps that split the reduced dimension (their sums meet in shared memory)
 };
 
-// FP64 tensor-core loop: a warp holds the sums of MMA_M16_T m16 tiles (T:
-// 16 reals across the slab each); N: of one m16 tile (16 rows)
+// FP64 tensor-core loop: mma.sync m16n8k16, a warp holding the sums of
+// MMA_M16_T m16 tiles (T: 16 reals across the slab each); N: of one m16 tile
+// (16 rows)
+constexpr int MMA_KS = 16;
 constexpr int MMA_M16_T = 2;
 
-// Which inner loop a launch runs (0: multiply-adds; else the depth KS of
-// mma.sync m16n8kKS): the FP64 tensor cores for float64 and complex128 at
-// KC >= 4, except float64 applied transposed at KC = 4, and where a slab of a
-// transposed matrix fits the warps' sums (complex128: 128 columns).  m16n8k16
-// measured fastest of m16n8k4/8/16 (and m8n8k4, 1.1 - 8 times slower than
-// multiply-adds); the float64 transposed launches at KC = 4 lose 1 - 11 % on
-// the tensor cores (tools/torch_kernel_probe.py --phases loop; PERF.md
-// section 6).
+// Which inner loop a launch runs: the FP64 tensor cores for float64 and
+// complex128 at KC >= 4, except float64 applied transposed at KC = 4, and
+// where a slab of a transposed matrix fits the warps' sums (complex128: 128
+// columns); else multiply-adds.  m16n8k16 measured fastest of m16n8k4/8/16
+// (m8n8k4, the sm_80 shape, was 1.1 - 8 times slower than multiply-adds);
+// float64 transposed launches at KC = 4 lose 1 - 11 % on the tensor cores
+// (tools/torch_kernel_probe.py --phases loop at the commit PERF.md section 6
+// names).
 template <typename S>
-inline int mma_wanted(bool trans, int KC, int tc) {
+inline bool mma_wanted(bool trans, int KC, int tc) {
   using Real = typename RealOf<S>::type;
   constexpr int NC = sizeof(S) / sizeof(Real);
-  if (sizeof(Real) != 8 || KC < 4) return 0;
-  int ks = 16;
-  if (const char* e = getenv("HTOOL_EXP_LOOP")) {
-    if (e[0] == 'f') return 0;
-    ks = atoi(e + 1);
-  } else if (trans && NC == 1 && KC == 4) {
-    return 0;
-  }
-  return !trans || (tc * NC + 15) / 16 <= MMA_M16_T * NWARP ? ks : 0;
+  if (sizeof(Real) != 8 || KC < 4) return false;
+  if (!trans) return true;
+  return !(NC == 1 && KC == 4) && (tc * NC + 15) / 16 <= MMA_M16_T * NWARP;
 }
 
 template <typename S>
@@ -242,7 +240,7 @@ inline int make_geom(StreamGeom& g, bool trans, int KC, int R, int C, int P, int
       g.kg = NWARP / mg;
       g.cwt = 0;
       int tr = min(TILE_BYTES / (g.srow * item), xr);
-      const int step = g.mma * g.kg;
+      const int step = MMA_KS * g.kg;
       if (tr >= step) tr = tr / step * step;
       g.tr = tr;
     } else {
@@ -259,17 +257,14 @@ inline int make_geom(StreamGeom& g, bool trans, int KC, int R, int C, int P, int
   return g.tr >= 1 ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Call f(std::integral_constant<int, KS>) with the loop the geometry chose:
-// the launch of kernel<..., KS> (KS > 0 only where it is compiled: f64 and
+// Call f(std::integral_constant<bool, MMA>) with the loop the geometry chose:
+// the launch of kernel<..., MMA> (MMA only where it is compiled: f64 and
 // complex128 at KC >= 4).
 template <typename S, int KC, typename F>
 inline int with_loop(const StreamGeom& g, F&& f) {
-  if constexpr (sizeof(typename RealOf<S>::type) == 8 && KC >= 4) {
-    if (g.mma == 4) return f(std::integral_constant<int, 4>{});
-    if (g.mma == 8) return f(std::integral_constant<int, 8>{});
-    if (g.mma == 16) return f(std::integral_constant<int, 16>{});
-  }
-  return f(std::integral_constant<int, 0>{});
+  if constexpr (sizeof(typename RealOf<S>::type) == 8 && KC >= 4)
+    if (g.mma) return f(std::true_type{});
+  return f(std::false_type{});
 }
 
 // Let a streaming kernel use STREAM_SMEM bytes of dynamic shared memory and
@@ -328,32 +323,18 @@ struct XLayout {
   }
 };
 
-// FP64 tensor cores: D [16 x 8] += A [16 x KS] · B [KS x 8] for a warp, in
-// IEEE double multiply-adds.  Lane 4 g + t holds a[i] = A[g + 8 (i % 2)][t +
-// 4 (i / 2)], b[i] = B[t + 4 i][g], and d = D[g][2t], D[g][2t + 1],
-// D[g + 8][2t], D[g + 8][2t + 1].
-template <int KS>
-__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[KS / 2],
-                                        const double (&b)[KS / 4]) {
-  if constexpr (KS == 4)
-    asm volatile(
-        "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
-        "{%0, %1, %2, %3};\n"
-        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-  else if constexpr (KS == 8)
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-        "{%8, %9}, {%0, %1, %2, %3};\n"
-        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-  else
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
-        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]),
-          "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+// FP64 tensor cores: D [16 x 8] += A [16 x 16] · B [16 x 8] for a warp, in
+// IEEE double multiply-adds (mma.sync m16n8k16).  Lane 4 g + t holds a[i] =
+// A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] = B[t + 4 i][g], and d = D[g][2t],
+// D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1].
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[8],
+                                        const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]), "d"(a[7]),
+        "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 // B fragment of n-tile nt for op N: B[kr][n], n = nt * 8 + g, from x rows
@@ -497,7 +478,7 @@ __device__ __forceinline__ void advance(Cursor& c, const StreamGeom& g, const Ad
 // Stream the slots [s_begin, s_end) of one CTA (at most MAX_SLOTS).  X [., ldx] and Y [., ldy]
 // are row-major; the CTA handles columns [j0, j0 + kc), kc <= KC.  smem is
 // STREAM_SMEM bytes, 16-byte aligned.
-template <typename S, int KC, bool TRANS, int KS, typename Addr>
+template <typename S, int KC, bool TRANS, bool MMA, typename Addr>
 __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj, int store,
                            const Addr& addr, int s_begin, int s_end,
                            const S* __restrict__ X, int ldx, S* Y, int ldy, int j0, int kc,
@@ -539,14 +520,13 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
   const int sl = lane % lw, wsub = warp * sub_n + lane / lw;
   const int rpq = NWARP * sub_n;  // rows of a pass per q
   // T: cwt threads across the slab, NT / cwt groups down the rows
-  constexpr bool MMA = KS > 0;  // the inner loop on the FP64 tensor cores
   const int cwt = TRANS && !MMA ? g.cwt : 1;
   const int cl = threadIdx.x % cwt, grp = threadIdx.x / cwt, ng = NT / cwt;
 
   S acc[RW][KC];  // T uses acc[0]
   // the tensor-core loop's sums: D fragments [m16 tile][n-tile] (N: one m16 tile)
   constexpr int NTL = (KC * NC + 7) / 8;  // n-tiles of 8 reals across the k columns
-  constexpr int KQ = MMA ? KS / 4 : 1;    // K of an mma step per lane
+  constexpr int KS = MMA_KS, KQ = KS / 4;  // K of an mma step; of it per lane
   double macc[MMA ? MMA_M16_T : 1][MMA ? NTL : 1][4];
   const int g8 = lane >> 2, t4 = lane & 3;  // the lane's place in an mma fragment
   // mma: warp w takes k-group w % kg and row (N) or reals (T) group w / kg
@@ -614,7 +594,7 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
                   bf[nt][q] = frag_b_n<S, KC>(xs, xi0, kr, kv, nt, g8, cj);
               }
 #pragma unroll
-              for (int nt = 0; nt < NTL; ++nt) mma_f64<KS>(macc[0][nt], af, bf[nt]);
+              for (int nt = 0; nt < NTL; ++nt) mma_f64(macc[0][nt], af, bf[nt]);
             }
           }
           if (cons.ch == g.nch - 1) {
@@ -740,7 +720,7 @@ __device__ void stream_run(const StreamGeom& g, const S* __restrict__ A, int cj,
                 af[2 * q + h] = kv[q] && m < mreal ? tr_[(size_t)kr[q] * srr + m] : 0.0;
               }
 #pragma unroll
-            for (int nt = 0; nt < NTL; ++nt) mma_f64<KS>(macc[i][nt], af, bf[nt]);
+            for (int nt = 0; nt < NTL; ++nt) mma_f64(macc[i][nt], af, bf[nt]);
           }
         }
       } else if (cl < cw) {

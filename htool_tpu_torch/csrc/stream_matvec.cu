@@ -36,13 +36,13 @@ struct PlanAddr {
   __device__ __forceinline__ void check(long long, int, long long, int) const {}
 };
 
-template <typename S, int KC, bool TRANS, int KS>
+template <typename S, int KC, bool TRANS, bool MMA>
 __global__ void __launch_bounds__(NT, CTAS_PER_SM)
 stream_matvec_kernel(StreamGeom g, const S* A, int cj, int store, PlanAddr addr, int G,
                      const S* x, int k, S* y) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int j0 = blockIdx.y * KC;
-  stream_run<S, KC, TRANS, KS>(g, A, cj, store, addr, blockIdx.x * G, (blockIdx.x + 1) * G, x, k,
+  stream_run<S, KC, TRANS, MMA>(g, A, cj, store, addr, blockIdx.x * G, (blockIdx.x + 1) * G, x, k,
                            y, k, j0, min(KC, k - j0), smem);
 }
 
@@ -51,8 +51,8 @@ int launch(int cj, int store, const void* A, int R, int C, int P, int cut,
            const PlanAddr& addr, int G, const void* x, int k, void* y, cudaStream_t stream) {
   StreamGeom g;
   if (int err = make_geom<S>(g, TRANS, KC, R, C, P, cut, A)) return err;
-  return with_loop<S, KC>(g, [&](auto ks) {
-    constexpr auto kernel = stream_matvec_kernel<S, KC, TRANS, decltype(ks)::value>;
+  return with_loop<S, KC>(g, [&](auto mma) {
+    constexpr auto kernel = stream_matvec_kernel<S, KC, TRANS, decltype(mma)::value>;
     if (int err = configure_stream_kernel<kernel>()) return err;
     dim3 grid((addr.n_slots + G - 1) / G, (k + KC - 1) / KC);
     kernel<<<grid, NT, STREAM_SMEM, stream>>>(g, static_cast<const S*>(A), cj, store, addr, G,

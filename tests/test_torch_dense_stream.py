@@ -240,7 +240,7 @@ def _mma_loop(A, x, trans, cj, KS, kg):
     return out
 
 
-@pytest.mark.parametrize("KC,KS,kg", [(4, 16, 2), (8, 8, 1), (8, 16, 4)])
+@pytest.mark.parametrize("KC,KS,kg", [(4, 16, 2), (8, 16, 1), (8, 16, 8)])
 @pytest.mark.parametrize("dtype,mode", [("float64", "N"), ("float64", "T"),
                                         *(("complex128", m) for m in ("N", "T", "C", "conj"))])
 def test_tensor_core_loop_emulation(dtype, mode, KC, KS, kg):

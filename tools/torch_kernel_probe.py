@@ -12,8 +12,8 @@ Phases (each prints JSON lines; with ``--out`` they are also written to
 - ``build``: compile the kernels, print ptxas' registers and spills;
 - ``check``: every route of the streaming kernels (dense plans, one-launch
   and split low-rank plans, unplanned dense terms, one-launch and two-stage
-  unplanned low-rank terms) against its plain version, float64 and
-  complex128 through both inner loops, on small random buckets: 4 dtypes, both
+  unplanned low-rank terms) against its plain version, on small random
+  buckets (float64 and complex128 at k >= 4 on the FP64 tensor cores): 4 dtypes, both
   orientations, conj, k = 1, 2, 3, 5, 8, 11, aligned and unaligned shapes;
 - ``real``: the real flagship H-matrix (n points on a sphere, f32, leaf 256,
   64 partitions): per bucket and k = 1, 8, the streaming kernel on the dense
@@ -28,10 +28,6 @@ Phases (each prints JSON lines; with ``--out`` they are also written to
   of calls (the host's pace where the launch is shorter than a call) and the
   kernels' own durations from a profiler trace; the measurements behind
   ``ops/cut.py::lr_split_wanted``;
-- ``loop``: the FP64 tensor-core loop of the streaming core against its
-  multiply-add loop, on every dense bucket and both stages of every
-  low-rank bucket of the real flagship (planned) and the symmetric path
-  (unplanned), cast to float64 and complex128, N and T, k = 4 and 8;
 - ``product``: the symmetric unplanned product, host enqueue time against
   the whole, with the rule, all one-launch and all two-stage;
 - ``devtime``: kernel durations of the symmetric path's terms from a
@@ -109,8 +105,6 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     ap.add_argument("--phases", default="build,check,real,wide,target,floor")
-    ap.add_argument("--loops", default="fma,k4,k8,k16",
-                    help="inner loops of the streaming core to check and time (HTOOL_EXP_LOOP)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if args.fit:
@@ -210,14 +204,8 @@ def main(argv=None) -> int:
                   ("lr", 3, 333, 517, 1), ("lr", 2, 800, 800, 256), ("lr", 1, 3136, 2080, 130),
                   ("lr", 4, 61, 45, 7)]
         worst, n_cases, failed = {}, 0, {}
-        cases = [(loop, dtype) for loop in ("rule", *args.loops.split(",")) for dtype in TOL
-                 if loop == "rule" or dtype in (torch.float64, torch.complex128)]
         for kind, nb, bm, bn, r in shapes:
-            for loop, dtype in cases:
-                if loop == "rule":
-                    os.environ.pop("HTOOL_EXP_LOOP", None)
-                else:
-                    os.environ["HTOOL_EXP_LOOP"] = loop
+            for dtype in TOL:
                 bucket = rand_bucket(kind, nb, bm, bn, r, dtype, L)
                 for side in ("t", "s"):
                     trans = side == "s"
@@ -238,15 +226,14 @@ def main(argv=None) -> int:
                             sync()
                             for name, y in got.items():
                                 e = rel(y, ref)
-                                key = f"{kind}/{name}/{str(dtype)[6:]}/{loop}"
+                                key = f"{kind}/{name}/{str(dtype)[6:]}"
                                 worst[key] = max(worst.get(key, 0.0), e)
                                 n_cases += 1
                                 if not (e <= TOL[dtype]) or not bool(torch.isfinite(y).all()):
                                     failed.setdefault(key, dict(
-                                        route=name, loop=loop, kind=kind, nb=nb, bm=bm, bn=bn, r=r,
+                                        route=name, kind=kind, nb=nb, bm=bm, bn=bn, r=r,
                                         dtype=str(dtype), side=side, conj=conj, k=k, rel=e))
                 del bucket
-        os.environ.pop("HTOOL_EXP_LOOP", None)
         # a misaligned view of the block data: the element-wise copy path
         base = randn(3 * 64 * 64 + 1, dtype=torch.float32)
         odd = ht.DenseBucket(data=base[1:].view(3, 64, 64),
@@ -266,7 +253,7 @@ def main(argv=None) -> int:
 
     # ---------------- real flagship buckets ----------------
     H = None
-    if phases & {"real", "target", "loop"}:
+    if phases & {"real", "target"}:
         n = args.n
         pts = create_sphere(n, seed=0)
         pts_d = torch.as_tensor(pts.astype(np.float32), device=dev)
@@ -323,54 +310,6 @@ def main(argv=None) -> int:
                 del b
             emit(dict(phase="real_sums", dtype=str(dtype),
                       sums={f"k{k}/{name}": v for (k, name), v in sorted(sums.items())}))
-
-    # ---------------- FP64 tensor cores against multiply-adds ----------------
-    if "loop" in phases:
-        # every dense bucket and both stages of every low-rank bucket of the
-        # real flagship (planned) and of the symmetric path (unplanned), cast
-        # to float64 and complex128, N and T, k = 4 and 8: the launch on the
-        # FP64 tensor cores against the one on multiply-adds
-        tree8 = ht.build_cluster_tree(pts, max_leaf_size=256, n_partitions=8)
-        HS = ht.build_hmatrix(gen, tree8, epsilon=1e-3, eta=10.0, symmetry="S", UPLO="L")
-        sync()
-        ms_pad = HS.shape[0] + _pad_in_of(HS)
-        sums = {}
-        for path, h, L in (("flagship", H, m_pad), ("symmetric", HS, ms_pad)):
-            for dtype in (torch.float64, torch.complex128):
-                for bi, b0 in enumerate(h.dense_buckets + h.lr_buckets):
-                    b = cast(b0, dtype)
-                    dense = isinstance(b, ht.DenseBucket)
-                    for trans in (False, True):
-                        side = "s" if trans else "t"
-                        if path == "flagship":
-                            plan = (build_tile_plan(b, side, L) if dense
-                                    else build_tile_plan_lr_split(b, side, L))
-                            call = lambda plan=plan, xp=None: tiled_bucket_matvec(plan, xp)
-                        else:
-                            call = lambda plan=None, xp=None, b=b, trans=trans: unplanned(
-                                b, xp, trans, L, split=True)
-                        for k in (4, 8):
-                            xp = randn(L, k, dtype=dtype)
-                            row = dict(phase="loop", path=path, dtype=str(dtype), bucket=bi,
-                                       kind="dense" if dense else "lr", n_blocks=b.n_blocks,
-                                       block_shape=b.block_shape,
-                                       rank=None if dense else b.rank_padded, trans=trans, k=k)
-                            ys = {}
-                            loops = args.loops.split(",")
-                            for loop in loops + loops[::-1]:
-                                os.environ["HTOOL_EXP_LOOP"] = loop
-                                row.setdefault(loop, []).append(event_ms(lambda: call(xp=xp)))
-                                ys[loop] = call(xp=xp)
-                            os.environ.pop("HTOOL_EXP_LOOP", None)
-                            row["rel_vs_fma"] = {lp: rel(ys[lp], ys["fma"]) for lp in loops}
-                            emit(row)
-                            key = f"{path}/{str(dtype)[6:]}/{'T' if trans else 'N'}/k{k}"
-                            for loop in loops:
-                                sums[f"{key}/{loop}"] = sums.get(f"{key}/{loop}", 0.0) + min(
-                                    row[loop])
-                    del b
-        emit(dict(phase="loop_sums", ms=sums))
-        del HS
 
     # ---------------- one launch against two stages: the rule's measurements ----------------
     if "rule" in phases:
