@@ -353,9 +353,11 @@ __device__ __forceinline__ double frag_b_n(const S* xs, int xrow0, int kr, bool 
   } else {
     const int j = nt * 4 + (g >> 1);
     if (!kv || j >= KC) return 0.0;
-    const S v = xs[j * XL::XR + xrow0 + (kr >> 1)];
-    if (!(kr & 1)) return g & 1 ? v.im : v.re;
-    return g & 1 ? (cj ? -v.re : v.re) : (cj ? v.im : -v.im);
+    // one real of x[kr / 2][j]: p = 0 (ar's row) takes xr for q = 0 and xi
+    // for q = 1; p = 1 (ai's row) takes -xi and xr, conj flipping the sign
+    const int p = kr & 1, q = g & 1;
+    const double v = reinterpret_cast<const double*>(xs + j * XL::XR + xrow0 + (kr >> 1))[p ^ q];
+    return p && (q == 0) != (cj != 0) ? -v : v;
   }
 }
 
@@ -371,8 +373,7 @@ __device__ __forceinline__ double frag_b_t(const S* xs, int kr, bool kv, int nt,
   } else {
     const int j = nt * 4 + (g >> 1);
     if (!kv || j >= KC) return 0.0;
-    const S v = xs[j * XL::XR + kr];
-    return g & 1 ? v.im : v.re;
+    return reinterpret_cast<const double*>(xs + j * XL::XR + kr)[g & 1];
   }
 }
 

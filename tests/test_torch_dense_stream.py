@@ -172,10 +172,9 @@ def _frag_b(x, kr, kv, nt, g, cj, trans, complex_):
     if trans:
         v = x[kr, j]
         return v.imag if g & 1 else v.real
-    v = x[kr >> 1, j]
-    if not kr & 1:
-        return v.imag if g & 1 else v.real
-    return (-v.real if cj else v.real) if g & 1 else (v.imag if cj else -v.imag)
+    p, q = kr & 1, g & 1
+    v = (x[kr >> 1, j].real, x[kr >> 1, j].imag)[p ^ q]
+    return -v if p and (q == 0) != bool(cj) else v
 
 
 def _mma_loop(A, x, trans, cj, KS, kg):
