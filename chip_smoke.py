@@ -16,13 +16,20 @@ Phases (each prints one JSON line):
    (n = 2,000; with plans attached its low-rank buckets, too short for two
    stages, run the one-launch planned kernel, held against the unplanned
    product);
-3. main path — sphere → cluster tree → H-matrix (f32, Laplace kernel, leaf
+3. main path — sphere → cluster tree and block plan from the native C++
+   planner (the default; the library must build, and both must come from
+   it) → H-matrix (f32, Laplace kernel, leaf
    256, ε = 1e-3, η = 10) → tiled plans → one-level RAS (64 subdomains,
    overlap 0.02, dense local solves) → restarted GMRES(60) to 1e-6, twice,
    then once more with a float64 NumPy right-hand side (GMRES in float64,
-   every product still through the kernel); the matvec at k = 8 is timed
+   every product still through the kernel); GMRES must take the reference's
+   3 iterations; the matvec at k = 8 is timed
    with the kernel and with its plain version, and checked against
    generator rows; assembly and the Schwarz set-up are timed again warm;
+3b. native planner — the flagship's tree and block plan from the native
+   planner (``"auto"``) and from the NumPy builders (``"python"``) on the
+   same points, timed; the native calls are counted and the two block plans
+   must have the same leaves;
 4. kernel vs plain — every bucket term of that H-matrix, both
    orientations, k = 1 and 8, f32 and f64, against the plain PyTorch
    version on the same CUDA tensors; every low-rank bucket through its
@@ -74,12 +81,28 @@ Phases (each prints one JSON line):
     kernels on x viewed as 2k real columns);
 14. profile — 20 complex products at k = 8;
 15. per-call floor — what one wrapper call on a bucket of one tiny block
-    costs, on the host clock over 1,000 calls and between CUDA events.
+    costs, on the host clock over 1,000 calls and between CUDA events;
+16. two-level path — the JAX bench's ``ddm2_n20000`` row: sphere n = 20,000,
+    f32, leaf 256, 8 subdomains, ε = 1e-3, tiled plans, overlap 0.05, GenEO
+    (ν = 2, ``symmetry="S"``, local store) with the additive correction, RAS
+    with dense local solves, GMRES(60) to 1e-6 cold and warm, beside the
+    one-level solve; the GenEO infos; Q r of the local store against a
+    replicated build (≤ 1e-4); true residuals < 10·tol; every product through
+    the planned kernel (the E = Z* A Z product at k = 16), none through a plain
+    version; that wide product held against its plain version; a profiler
+    window over one GenEO build;
+17. two-level grid — the 7-point grid Laplacian on 32³ points (n = 32,768,
+    float64, the matrix filled on the card), ``MatrixGenerator``,
+    leaf 64, 64 subdomains, ε = 1e-8, overlap radius 1.5, GenEO ν = 8, local
+    store; one-level RAS and the additive, deflated and balanced corrections
+    through GMRES(60) to 1e-6: every residual < 10·tol, the fewest two-level
+    iterations strictly below the one-level count, coarse size = Σ νᵢ; the E
+    product at k = 512 held against its plain version (≤ 1e-12).
 
 The ``kernels`` line before the last lists every entry point (three kernels
 × float32, float64, complex64, complex128, and the planned kernel's split
-two-stage low-rank terms apart) with its launches on the main paths (also
-split by k), its time summed over the main path's terms at k = 8 (and,
+two-stage low-rank terms apart) with its launches on the main paths (phases
+3, 7, 11, 12, 16 and 17; also split by k), its time summed over the main path's terms at k = 8 (and,
 under ``k1``, at k = 1) beside the plain version's, its bound (bytes moved
 once over 3.35 TB/s, a split term's staging tensor written and read once
 included, or operations over the peak rate of the type, whichever is
@@ -203,9 +226,11 @@ def main(argv=None) -> int:
         tiled_bucket_matvec,
         tiled_bucket_matvec_reference,
     )
-    from htool_tpu_torch.solvers import DDMSolver
+    from htool_tpu_torch import native
+    from htool_tpu_torch.solvers import DDMSolver, build_geneo_coarse_space, build_geometric_overlap
     from htool_tpu_torch.testing import (
         create_sphere,
+        grid_laplacian,
         laplace_kernel_complex_symmetric,
         laplace_kernel_hermitian,
         laplace_kernel_symmetric,
@@ -262,10 +287,12 @@ def main(argv=None) -> int:
     # the bytes each launch must move (blocks, x and y once) and its
     # operations (2 per real multiply-add, 8 per complex one)
     PEAK_BYTES_S = 3.35e12  # H100 SXM, HBM3
-    # non-tensor-core rates (H100 SXM data sheet): 67 TFLOP/s float32, half
-    # of it float64; the complex types run on the same units
+    # peak rates of the H100 SXM data sheet: 67 TFLOP/s float32 (no TF32: the
+    # package pins full-precision matmuls) and 67 TFLOP/s float64 on the FP64
+    # tensor cores, which the streaming kernels and cuBLAS both use; the
+    # complex types run on the same units
     PEAK_FLOPS_S = {torch.float32: 67e12, torch.complex64: 67e12,
-                    torch.float64: 33.5e12, torch.complex128: 33.5e12}
+                    torch.float64: 67e12, torch.complex128: 67e12}
     stats: dict = {}
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
@@ -380,6 +407,8 @@ def main(argv=None) -> int:
     pts = create_sphere(n, seed=args.seed)
     pts_d = torch.as_tensor(pts.astype(np.float32), device=dev)
     gen = ht.KernelGenerator(laplace_kernel_symmetric, pts_d, pts_d)
+    require(native.native_available(), "the native planner library did not build")
+    native.ct_build_native.calls = native.bt_plan_native.calls = 0
     t0 = time.perf_counter()
     tree = ht.build_cluster_tree(pts, max_leaf_size=256, n_partitions=P)
     t_tree = time.perf_counter() - t0
@@ -387,6 +416,7 @@ def main(argv=None) -> int:
     H = ht.build_hmatrix(gen, tree, epsilon=eps, eta=10.0)
     sync()
     t_asm = time.perf_counter() - t0
+    native_calls = (native.ct_build_native.calls, native.bt_plan_native.calls)
     t0 = time.perf_counter()
     prepare_tiled_matvec(H)
     sync()
@@ -478,7 +508,8 @@ def main(argv=None) -> int:
         ref_iters = json.load(f)["ras_gmres_1level"]
     emit(dict(
         phase="main_path", n=n, subdomains=P, epsilon=eps, tol=tol,
-        tree_s=t_tree, assembly_s=t_asm, aca_s=H.info["aca_walltime"],
+        tree_s=t_tree, native_tree_builds=native_calls[0], native_block_plans=native_calls[1],
+        assembly_s=t_asm, aca_s=H.info["aca_walltime"],
         assembly_warm_s=t_asm_warm, prepare_s=t_prep, facto_s=t_facto,
         facto_warm_s=t_facto_warm, solve_cold_s=solves[0], solve_warm_s=solves[1],
         compression_ratio=info["compression_ratio"], n_false_positive=info["n_false_positive"],
@@ -515,6 +546,40 @@ def main(argv=None) -> int:
     require(mv_vs_plain < 1e-5, f"matvec kernel vs plain {mv_vs_plain:.3e}")
     require(launches > 0 and launches == terms * products,
             f"kernel launches {launches} != bucket terms {terms} x products {products}")
+    require(native_calls == (1, 1),
+            f"the main path's tree and block plan did not come from the native planner: "
+            f"{native_calls} native calls")
+    require(infos["Nb_it"] == ref_iters,
+            f"GMRES took {infos['Nb_it']} iterations, the reference {ref_iters}")
+
+    # ---------------- 3b. native planner ----------------
+    # the flagship's tree and block plan from the C++ planner ("auto", as the
+    # main path built them) and from the NumPy builders, on the same points
+    planner = {}
+    for backend in ("auto", "python"):
+        c0, b0 = native.ct_build_native.calls, native.bt_plan_native.calls
+        t0 = time.perf_counter()
+        tree_b = ht.ClusterTreeBuilder(max_leaf_size=256, backend=backend).build(
+            pts, n_partitions=P)
+        t_tree_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plan_b = ht.plan_block_tree(tree, epsilon=eps, eta=10.0, backend=backend)
+        planner[backend] = dict(
+            tree_s=t_tree_b, block_plan_s=time.perf_counter() - t0,
+            native_calls=[native.ct_build_native.calls - c0, native.bt_plan_native.calls - b0],
+            n_nodes=tree_b.n_nodes, n_dense=len(plan_b.dense),
+            n_admissible=len(plan_b.admissible),
+            same_permutation_as_main_path=bool(np.array_equal(tree_b.permutation,
+                                                              tree.permutation)),
+            leafset=sorted((l.t_off, l.t_size, l.s_off, l.s_size) for l in
+                           plan_b.dense + plan_b.admissible))
+    same_leaves = planner["auto"].pop("leafset") == planner["python"].pop("leafset")
+    emit(dict(phase="native_planner", n=n, subdomains=P, library=native.get_lib()._name,
+              same_block_plan=same_leaves, **planner))
+    require(planner["auto"]["native_calls"] == [1, 1] and planner["python"]["native_calls"] == [0, 0]
+            and planner["auto"]["same_permutation_as_main_path"],
+            f"native planner: {planner}")
+    require(same_leaves, "the native and the python block plans differ on the same tree")
 
     # ---------------- 4. kernel vs plain, per bucket term ----------------
     tol_rel = {torch.float32: 1e-5, torch.float64: 1e-12,
@@ -1336,6 +1401,218 @@ def main(argv=None) -> int:
         floor[name] = dict(host_us_per_call=host_us, device_us_per_call=1e3 * event_ms(fn, 1000))
     emit(dict(phase="per_call_floor", calls=1000, per_call=floor))
     require(bool(torch.isfinite(y_t).all()), "per-call floor: non-finite output")
+
+    # ---------------- 16. two-level path: GenEO on the sphere ----------------
+    # the JAX bench's two-level row (ddm2_n20000): RAS + GenEO (ν = 2, local
+    # store, additive) + GMRES(60), beside the one-level solve
+    del Hc, HH, gen_c, gen_h
+    torch.cuda.empty_cache()
+    GENEO_INFOS = ("GenEO_coarse_space_size", "GenEO_geev_walltime", "GenEO_ZtAZ_walltime",
+                   "GenEO_facto_coarse_operator_walltime")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "bench_iterations.json")) as f:
+        ref_iters_2 = json.load(f)
+
+    def planned_counts(h):
+        """The wrappers' launches since the counts were set to 0: every
+        product through the planned kernel, none through the unplanned ones
+        or a plain version."""
+        n_split_h = sum(isinstance(b.plan_t, SplitPlan) for b in h.lr_buckets)
+        collect_split(n_split_h, n_terms(h))
+        collect_launches()
+        out = dict(products=matvec.products, launches=tiled_bucket_matvec.launches,
+                   cuda_launches=tiled_bucket_matvec.cuda_launches,
+                   launches_by_k={str(k): c for (_, k), c in
+                                  sorted(tiled_bucket_matvec.launches_by_k.items())},
+                   plain_version_calls=plain_calls[0])
+        require(out["launches"] == n_terms(h) * out["products"] > 0
+                and dense_bucket_matvec.launches == lr_bucket_matvec.launches == 0
+                and out["plain_version_calls"] == 0,
+                f"two-level path: launches {out}, unplanned "
+                f"{dense_bucket_matvec.launches + lr_bucket_matvec.launches}")
+        return out
+
+    def wide_product(h, cs, dense=None):
+        """The E = Z* A Z product: the H-matrix on the coarse basis block
+        [N, c·nu_max] that the assembly hands it (c = all P ≤ 64 partitions),
+        through the kernels and through the plain version on the same CUDA
+        tensors, the plain version 64 columns at a time (its partial tiles
+        take n_steps·tile·k scalars: 52 GB at k = 512 on the grid); not
+        counted (the counts were read before).  Its bound: the blocks, X and
+        Y moved once, or 2 flops a block entry and column, whichever takes
+        longer.  With ``dense`` (the matrix in user numbering, which the
+        H-matrix stores exactly when every block is dense), ``torch.mm`` on
+        it is the library yardstick and the dense product a second oracle."""
+        nc_pad = cs.Z_loc.shape[0] * cs.nu_max
+        X = cs._z_apply(torch.eye(nc_pad, dtype=cs.Z_loc.dtype, device=dev))
+        k = X.shape[1]
+        yk = matvec(h, X)
+        ms = event_ms(lambda: matvec(h, X))
+        linalg.tiled_bucket_matvec = tiled_bucket_matvec_reference
+        try:
+            def plain():
+                return torch.cat([matvec(h, X[:, j : j + 64].contiguous())
+                                  for j in range(0, k, 64)], dim=1)
+
+            yp = plain()
+            plain_ms = event_ms(plain, reps=1)
+        finally:
+            linalg.tiled_bucket_matvec = tiled_bucket_matvec
+        r = float(torch.linalg.norm(yk - yp) / torch.linalg.norm(yp))
+        require(bool(torch.isfinite(yk).all()) and r <= tol_rel[X.dtype],
+                f"wide product k = {k}: kernel vs plain rel {r:.3e}")
+        entries = sum((1 + bool(b.mirror)) * (b.data.numel() if isinstance(b, ht.DenseBucket)
+                                              else b.U.numel() + b.V.numel())
+                      for b in h.dense_buckets + h.lr_buckets)
+        by_bytes = 1e3 * X.element_size() * (entries + 2 * X.numel()) / PEAK_BYTES_S
+        by_ops = 1e3 * 2 * k * entries / PEAK_FLOPS_S[X.dtype]
+        out = dict(k=k, dtype=str(X.dtype), kernel_vs_plain_rel=r, product_ms=ms,
+                   plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+                   bound_by="bytes" if by_bytes >= by_ops else "operations",
+                   block_entries=entries, library_ms=None)
+        if dense is not None:
+            perm = h.perm_t
+            Xu = torch.empty_like(X)
+            Xu[perm] = X
+            yd = (dense @ Xu)[perm]
+            out.update(library_ms=event_ms(lambda: torch.mm(dense, Xu)),
+                       library_call="torch.mm on the dense matrix (user numbering)",
+                       kernel_vs_dense_rel=float(torch.linalg.norm(yk - yd)
+                                                 / torch.linalg.norm(yd)))
+            require(out["kernel_vs_dense_rel"] <= tol_rel[X.dtype],
+                    f"wide product k = {k}: kernel vs dense {out['kernel_vs_dense_rel']:.3e}")
+        return out
+
+    def true_residual(apply, x, b):
+        return float(torch.linalg.norm(apply(x) - b) / torch.linalg.norm(b))
+
+    n2, P2, tol2 = 20_000, 8, 1e-6
+    pts2 = create_sphere(n2, seed=args.seed)
+    pts2_d = torch.as_tensor(pts2.astype(np.float32), device=dev)
+    gen2 = ht.KernelGenerator(laplace_kernel_symmetric, pts2_d, pts2_d)
+    reset_counts()
+    watch_plain(True)
+    t0 = time.perf_counter()
+    tree2 = ht.build_cluster_tree(pts2, max_leaf_size=256, n_partitions=P2)
+    H2 = ht.build_hmatrix(gen2, tree2, epsilon=eps, eta=10.0)
+    prepare_tiled_matvec(H2)
+    ov2 = build_geometric_overlap(tree2, 0.05)
+    sync()
+    t_setup2 = time.perf_counter() - t0
+    A2 = lambda v: matvec(H2, v)  # noqa: E731
+    infos2: dict = {}
+    t0 = time.perf_counter()
+    cs2 = build_geneo_coarse_space(gen2, tree2, ov2, A2, nu=2, symmetry="S", store="local",
+                                   infos=infos2)
+    t_coarse2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver2 = DDMSolver(H2, gen2, tree2, schwarz="ras", overlap=ov2, coarse=cs2,
+                        coarse_correction="additive", local_solver="dense")
+    t_facto2 = time.perf_counter() - t0
+    solver1 = DDMSolver(H2, gen2, tree2, schwarz="ras", overlap=ov2, local_solver="dense")
+    rng2 = np.random.RandomState(args.seed + 2)
+    b2 = H2 @ torch.as_tensor(rng2.randn(n2).astype(np.float32), device=dev)
+    x1, it1 = solver1.solve(b2, tol=tol2, krylov="gmres", restart=60, maxiter=200)
+    solves2 = []
+    for _ in range(2):  # cold, warm
+        t0 = time.perf_counter()
+        x2, it2 = solver2.solve(b2, tol=tol2, krylov="gmres", restart=60, maxiter=200)
+        solves2.append(time.perf_counter() - t0)
+    res1, res2 = true_residual(H2.__matmul__, x1, b2), true_residual(H2.__matmul__, x2, b2)
+    # the same coarse space in the replicated store: Q r must agree
+    cs2_rep = build_geneo_coarse_space(gen2, tree2, ov2, A2, nu=2, symmetry="S",
+                                       store="replicated")
+    r2 = torch.as_tensor(rng2.randn(n2, 4).astype(np.float32), device=dev)
+    q_loc, q_rep = cs2.coarse_solve(r2), cs2_rep.coarse_solve(r2)
+    q_rel = float(torch.linalg.norm(q_loc - q_rep) / torch.linalg.norm(q_rep))
+    watch_plain(False)
+    counts2 = planned_counts(H2)
+    wide2 = wide_product(H2, cs2)
+    del cs2_rep, q_loc, q_rep
+    emit(dict(phase="two_level_path", n=n2, subdomains=P2, epsilon=eps, overlap=0.05, nu=2,
+              store="local", correction="additive", tol=tol2, setup_s=t_setup2,
+              coarse_space_s=t_coarse2, facto_s=t_facto2,
+              **{k: infos2[k] for k in GENEO_INFOS}, coarse_size=cs2.size,
+              nu_per_subdomain=cs2.nu_per_subdomain.tolist(),
+              local_size_max=solver2.infos["Local_size_max"],
+              one_level_iterations=it1["Nb_it"], two_level_iterations=it2["Nb_it"],
+              reference_iterations=dict(one_level=ref_iters_2["ras_gmres_1level_20k"],
+                                        two_level=ref_iters_2["ras_geneo_additive_2level_20k"]),
+              one_level_residual=res1, residual=res2, solve_cold_s=solves2[0],
+              solve_warm_s=solves2[1], coarse_solve_local_vs_replicated_rel=q_rel,
+              wide_product=wide2, **counts2))
+    require(cs2.size == 2 * P2 and infos2["GenEO_coarse_space_size"] == cs2.size,
+            f"two-level path: coarse size {cs2.size}")
+    require(all(bool(torch.isfinite(v).all()) for v in (x1, x2)), "two-level path: non-finite x")
+    require(res1 < 10 * tol2 and res2 < 10 * tol2,
+            f"two-level path: true residuals {res1:.3e}, {res2:.3e} >= 10*tol")
+    require(q_rel <= 1e-4, f"two-level path: Q r local against replicated {q_rel:.3e}")
+    emit(dict(phase="profile", **profile_window(
+        "geneo_build_n20000", lambda: build_geneo_coarse_space(
+            gen2, tree2, ov2, A2, nu=2, symmetry="S", store="local"))))
+    del H2, gen2, cs2, solver1, solver2
+    torch.cuda.empty_cache()
+
+    # ---------------- 17. two-level grid: where the coarse space pays ----------------
+    # the 7-point grid Laplacian (float64, filled on the card), 64 subdomains,
+    # ν = 8: one-level RAS, then the three corrections
+    g = 32
+    pts3, A3 = grid_laplacian((g, g, g), device=dev)
+    n3, P3, nu3, tol3 = pts3.shape[0], 64, 8, 1e-6
+    gen3 = ht.MatrixGenerator(A3)
+    reset_counts()
+    watch_plain(True)
+    t0 = time.perf_counter()
+    tree3 = ht.build_cluster_tree(pts3, max_leaf_size=64, n_partitions=P3)
+    H3 = ht.build_hmatrix(gen3, tree3, epsilon=1e-8, eta=10.0)
+    prepare_tiled_matvec(H3)
+    ov3 = build_geometric_overlap(tree3, 1.5)
+    sync()
+    t_setup3 = time.perf_counter() - t0
+    A3_apply = lambda v: matvec(H3, v)  # noqa: E731
+    infos3: dict = {}
+    t0 = time.perf_counter()
+    cs3 = build_geneo_coarse_space(gen3, tree3, ov3, A3_apply, nu=nu3, symmetry="S",
+                                   store="local", infos=infos3)
+    t_coarse3 = time.perf_counter() - t0
+    b3 = torch.as_tensor(np.random.RandomState(args.seed + 3).randn(n3), device=dev)
+    runs3 = {}
+    for corr in (None, "additive", "deflated", "balanced"):
+        t0 = time.perf_counter()
+        s3 = DDMSolver(H3, gen3, tree3, schwarz="ras", overlap=ov3, local_solver="dense",
+                       coarse=None if corr is None else cs3, coarse_correction=corr or "additive")
+        t_facto3 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        x3, it3 = s3.solve(b3, tol=tol3, krylov="gmres", restart=60, maxiter=300)
+        sync()
+        runs3[corr or "one_level"] = dict(
+            iterations=it3["Nb_it"], facto_s=t_facto3, solve_s=time.perf_counter() - t0,
+            residual=true_residual(lambda v: A3 @ v, x3, b3),
+            finite=bool(torch.isfinite(x3).all()))
+        del s3
+    watch_plain(False)
+    counts3 = planned_counts(H3)
+    wide3 = wide_product(H3, cs3, dense=A3)
+    info3 = ht.hmatrix_info(H3)
+    two_level_min = min(v["iterations"] for k, v in runs3.items() if k != "one_level")
+    emit(dict(phase="two_level_grid", grid=[g, g, g], n=n3, dtype="float64", subdomains=P3,
+              leaf=64, epsilon=1e-8, overlap=1.5, nu=nu3, store="local", tol=tol3,
+              setup_s=t_setup3, coarse_space_s=t_coarse3,
+              **{k: infos3[k] for k in GENEO_INFOS}, coarse_size=cs3.size,
+              sum_nu=int(np.sum(cs3.nu_per_subdomain)),
+              n_dense_blocks=info3["n_dense_blocks"],
+              n_low_rank_blocks=info3["n_low_rank_blocks"],
+              n_false_positive=info3["n_false_positive"], runs=runs3,
+              wide_product=wide3, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+              **counts3))
+    require(cs3.size == int(np.sum(cs3.nu_per_subdomain)) == nu3 * P3,
+            f"two-level grid: coarse size {cs3.size}, nu {cs3.nu_per_subdomain.tolist()}")
+    require(all(v["finite"] and v["residual"] < 10 * tol3 for v in runs3.values()),
+            f"two-level grid: residuals {runs3}")
+    require(two_level_min < runs3["one_level"]["iterations"],
+            f"two-level grid: no correction beat one level: {runs3}")
+    del H3, gen3, A3, cs3
+    torch.cuda.empty_cache()
 
     # ---------------- the kernels line ----------------
     csrc = "htool_tpu_torch/csrc/"

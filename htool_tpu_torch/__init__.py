@@ -4,11 +4,12 @@ Hierarchical matrices and domain-decomposition solvers on an NVIDIA GPU:
 geometric cluster trees, H-matrix compression (batched partial or full
 ACA, truncated SVD, SVD recompression), products through hand-written
 CUDA kernels (``csrc/``: tiled plans and unplanned buckets), and
-restarted GMRES / block GMRES / CG with one-level Schwarz preconditioners,
-for real and complex operators.  The JAX
+restarted GMRES / block GMRES / CG with one-level Schwarz preconditioners
+and the two-level GenEO coarse space, for real and complex operators.  The JAX
 package ``htool_tpu`` is the reference; this package never imports it or
-JAX.  Trees and block plans are built on the host in NumPy; the device sees
-flat, padded bucket tensors.
+JAX.  Trees and block plans are built on the host (by the C++ planner of
+``native/``, or in NumPy where it does not build); the device sees flat,
+padded bucket tensors.
 """
 
 from .utils.precision import set_full_precision as _set_full_precision
@@ -29,6 +30,7 @@ from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
 from .hmatrix.info import hmatrix_info, print_hmatrix_information
 from .hmatrix.linalg import matmat, matmat_user, matvec, matvec_user, to_dense
 from .hmatrix.output import load_hmatrix, save_hmatrix
+from .solvers.geneo import GeneoCoarseSpace, build_geneo_coarse_space
 from .utils.device import get_default_device, set_default_device
 
 __version__ = "0.1.0"
@@ -59,6 +61,8 @@ __all__ = [
     "print_hmatrix_information",
     "save_hmatrix",
     "load_hmatrix",
+    "GeneoCoarseSpace",
+    "build_geneo_coarse_space",
     "set_default_device",
     "get_default_device",
 ]

@@ -1,10 +1,10 @@
 """Geometric cluster trees — host-side planner.
 
-A copy of the NumPy ("python") backend of
-``htool_tpu/clustering/cluster_tree.py``: the port never imports the JAX
-package, so its host planners are copied, not shared.  The C++ native
-planner of the JAX package is not ported yet; the two backends give
-different permutations, so parity tests take the tree from this one.
+A copy of ``htool_tpu/clustering/cluster_tree.py``: the port never imports
+the JAX package, so its host planners are copied, not shared.  As there,
+``backend="auto"`` (the default) builds the tree with the C++ planner of
+:mod:`htool_tpu_torch.native` and falls back to the NumPy builder below when
+the planner does not build; the two backends give different permutations.
 
 The cluster tree is built once on the host in NumPy and is consumed as flat
 integer arrays by the block-tree planner.  The device never sees tree
@@ -311,6 +311,7 @@ class ClusterTreeBuilder:
     direction: str = "pca"
     splitting: str = "regular"
     strategy: str = "single_axis"  # "single_axis" | "multi_axis" (Partitioning_N)
+    backend: str = "auto"  # "auto" | "native" | "python"
 
     def build(
         self,
@@ -325,6 +326,17 @@ class ClusterTreeBuilder:
         if points.ndim != 2:
             raise ValueError("points must be [N, dim]")
 
+        if self.backend in ("auto", "native") and self.strategy == "single_axis":
+            from ..native import ct_build_native
+
+            out = ct_build_native(
+                points, self.max_leaf_size, self.n_children, self.direction, self.splitting,
+                n_partitions, partition, is_partition_local, radii, weights,
+            )
+            if out is not None:
+                return ClusterTree(points=points, max_leaf_size=self.max_leaf_size, **out)
+            if self.backend == "native":
+                raise RuntimeError("native planner unavailable (g++ compile failed)")
         N, dim = points.shape
         radii = (
             np.zeros(N) if radii is None else np.asarray(radii, dtype=np.float64)

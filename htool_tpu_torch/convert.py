@@ -1,8 +1,10 @@
-"""Carry cluster trees and H-matrices across from plain NumPy arrays.
+"""Carry cluster trees, H-matrices and GenEO coarse spaces across from
+plain NumPy arrays.
 
 Takes NumPy arrays only (no JAX): a caller that holds a JAX object turns
 its fields into arrays with ``np.asarray`` and hands them over, so both
-packages can work on the same tree or the same compressed operator.
+packages can work on the same tree, the same compressed operator or the same
+coarse space.
 """
 
 from __future__ import annotations
@@ -12,9 +14,10 @@ import torch
 
 from .clustering.cluster_tree import ClusterTree
 from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
+from .solvers.geneo import GeneoCoarseSpace
 from .utils.device import resolve_device
 
-__all__ = ["tree_from_numpy", "hmatrix_from_numpy"]
+__all__ = ["tree_from_numpy", "hmatrix_from_numpy", "geneo_from_numpy"]
 
 
 def tree_from_numpy(fields: dict) -> ClusterTree:
@@ -66,3 +69,24 @@ def hmatrix_from_numpy(d: dict, device=None) -> HMatrix:
         UPLO=str(d["UPLO"]),
         t_root_off=int(d["t_root_off"]),
     )
+
+
+def geneo_from_numpy(d: dict, device=None) -> GeneoCoarseSpace:
+    """Build a :class:`GeneoCoarseSpace` on ``device`` (default: the GPU, see
+    :mod:`.utils.device`) from a dict with the coarse operator ``E``,
+    ``nu_per_subdomain``, ``eigenvalues`` and either the replicated basis
+    ``Z`` [N, nc] or the local store ``Z_loc`` [P, sz_max, nu_max],
+    ``row_off``, ``row_size`` and ``nu_max``.  E is LU-factorized here."""
+    device = resolve_device(device)
+    E = torch.as_tensor(np.array(d["E"], copy=True), device=device)
+    E_lu, E_piv = torch.linalg.lu_factor(E)
+    nus = np.asarray(d["nu_per_subdomain"], np.int64)
+    common = dict(E_lu=E_lu, E_piv=E_piv, size=int(nus.sum()), nu_per_subdomain=nus,
+                  eigenvalues=[np.asarray(e) for e in d["eigenvalues"]])
+    if d.get("Z") is not None:
+        return GeneoCoarseSpace(Z=torch.as_tensor(np.array(d["Z"], copy=True), device=device),
+                                **common)
+    return GeneoCoarseSpace(
+        Z=None, Z_loc=torch.as_tensor(np.array(d["Z_loc"], copy=True), device=device),
+        row_off=np.asarray(d["row_off"], np.int64), row_size=np.asarray(d["row_size"], np.int64),
+        nu_max=int(d["nu_max"]), **common)

@@ -1,8 +1,9 @@
 """Block-tree planner — host-side, produces a flat leaf list.
 
-A copy of the python backend of ``htool_tpu/hmatrix/block_tree.py`` (the
-port imports no JAX, so host planners are copied).  The native C++ planner
-is not ported yet.
+A copy of ``htool_tpu/hmatrix/block_tree.py`` (the port imports no JAX, so
+host planners are copied).  ``backend="auto"`` (the default) runs the C++
+planner of :mod:`htool_tpu_torch.native` and falls back to the python
+recursion below when it does not build.
 
 The reference builds a pointer tree of HMatrix nodes
 (``hmatrix/tree_builder/tree_builder.hpp:417-531``); here the same recursion
@@ -93,6 +94,7 @@ def plan_block_tree(
     min_source_depth: int = 0,
     block_tree_consistency: bool = True,
     leaf_level: int | None = None,
+    backend: str = "auto",
     partition_number_for_symmetry: int = -1,
     source_partition: int = -1,
     admissibility=None,
@@ -108,7 +110,9 @@ def plan_block_tree(
     (``hmatrix/interfaces/virtual_admissibility_condition.hpp:17-24``).  A
     callable ``(t_center, t_radius, s_center, s_radius, eta) -> bool`` with
     the :func:`rjasanow_steinbach` signature; ``None`` uses
-    RjasanowSteinbach (the reference default).
+    RjasanowSteinbach (the reference default).  Custom conditions run
+    through the host python recursion (the native planner only evaluates
+    the built-in condition).
 
     ``source_partition`` (with ``target_partition``) restricts the plan to
     the (target, source) partition block — the recursion starts at the two
@@ -205,8 +209,35 @@ def plan_block_tree(
             ),
         )
 
-    if admissibility is None:
+    if source_partition >= 0:
+        # partition-pair restriction runs the python recursion from the
+        # partition roots; these plans are small by construction
+        backend = "python"
+    if admissibility is not None:
+        if backend == "native":
+            raise ValueError(
+                "custom admissibility conditions require the python planner "
+                "(backend='auto' or 'python')"
+            )
+        backend = "python"
+    else:
         admissibility = rjasanow_steinbach
+
+    if backend in ("auto", "native"):
+        from ..native import bt_plan_native
+
+        res = bt_plan_native(
+            tt, st, eta, symmetry, UPLO, target_partition, min_target_depth,
+            min_source_depth, block_tree_consistency, leaf_level,
+            partition_number_for_symmetry,
+        )
+        if res is not None:
+            plan.dense, plan.admissible = (
+                [BlockLeaf(*map(int, r[:6]), bool(r[6])) for r in rows] for rows in res
+            )
+            return plan
+        if backend == "native":
+            raise RuntimeError("native planner unavailable (g++ compile failed)")
 
     def t_is_leaf(t):
         return tt.is_leaf(t) or (leaf_level is not None and tt.depths[t] >= leaf_level)

@@ -15,8 +15,10 @@ Preconditioner variants (HPDDM ``-hpddm_schwarz_method``):
   partition of unity Dᵢ = 1 on interior / 0 on overlap (ddm.hpp:59-63)
 
 The explicit batched inverse is kept (not LU solves) so that iteration
-counts stay comparable with the reference.  The BLR local solvers and the
-GenEO coarse space are not ported yet.
+counts stay comparable with the reference.  A GenEO coarse space
+(:mod:`.geneo`) passed as ``coarse=`` makes the preconditioner two-level,
+with the additive, deflated or balanced correction.  The BLR local solvers
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -169,8 +171,9 @@ def _sync(device: torch.device) -> None:
 
 
 class DDMSolver:
-    """One-level Schwarz-preconditioned Krylov solver — the ``DDM``
-    equivalent (``solvers/ddm.hpp:29-382``).
+    """One-level (and, with a coarse space attached, two-level) Schwarz-
+    preconditioned Krylov solver — the ``DDM`` equivalent
+    (``solvers/ddm.hpp:29-382``).
 
     ``operator`` may be an :class:`~htool_tpu_torch.hmatrix.hmatrix.HMatrix`
     or any callable on cluster-numbered [N, k] tensors.  The solve runs in
@@ -186,16 +189,13 @@ class DDMSolver:
         schwarz: str = "ras",
         overlap: Optional[list[np.ndarray]] = None,
         overlap_radius: float = 0.0,
-        coarse=None,
+        coarse=None,  # optional GeneoCoarseSpace
+        coarse_correction: str = "additive",
         local_solver: str = "dense",
     ):
-        if coarse is not None:
-            raise NotImplementedError(
-                "two-level DDM (coarse=) is not ported yet (ROADMAP Queue 1 item 9, GenEO)"
-            )
         if local_solver in ("blr", "blr2"):
             raise NotImplementedError(
-                f"local_solver={local_solver!r} is not ported yet (ROADMAP Queue 1 item 10)"
+                f"local_solver={local_solver!r} is not ported yet (ROADMAP Queue 1 item 2)"
             )
         self.tree = tree
         self.generator = generator
@@ -232,9 +232,18 @@ class DDMSolver:
             raise ValueError(f"unknown schwarz variant {schwarz!r}")
         self.infos["Facto_one_level_walltime"] = time.perf_counter() - t0
 
+        self.coarse = coarse
+        self.coarse_correction = coarse_correction
+        if coarse is not None:
+            self.infos["Coarse_correction"] = coarse_correction
+            self.infos["Coarse_size"] = int(coarse.size)
+
     # ------------------------------------------------------------------
     def _preconditioner(self) -> Optional[Callable]:
-        return self.precond.apply if self.precond is not None else None
+        one = self.precond.apply if self.precond is not None else None
+        if self.coarse is None:
+            return one
+        return self.coarse.combined_preconditioner(one, self._apply, self.coarse_correction)
 
     def solve(
         self,

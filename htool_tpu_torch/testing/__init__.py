@@ -8,4 +8,5 @@ from .kernels import (
     laplace_kernel_hermitian,
     laplace_kernel_symmetric,
 )
+from .gmsh import load_gmsh_nodes
 from .problems import grid_laplacian

@@ -118,7 +118,7 @@ def test_build_hmatrix_parity(symmetry, UPLO, compressor):
     n, eps = 1000, 1e-4
     pts = create_sphere(n)
     tj = hj.ClusterTreeBuilder(max_leaf_size=32, backend="python").build(pts)
-    tt = ht.ClusterTreeBuilder(max_leaf_size=32).build(pts)
+    tt = ht.ClusterTreeBuilder(max_leaf_size=32, backend="python").build(pts)
     gj = hj.KernelGenerator(kj.laplace_kernel_symmetric, pts, pts)
     gt = ht.KernelGenerator(kt.laplace_kernel_symmetric, pts, pts)
     kw = dict(epsilon=eps, eta=10.0, symmetry=symmetry, UPLO=UPLO, compressor=compressor)

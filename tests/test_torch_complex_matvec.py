@@ -172,7 +172,7 @@ def test_port_assembles_complex_like_jax():
     """The port's own complex assembly: same buckets and ranks as the JAX
     package's."""
     pts = create_sphere(N)
-    tree = ht.ClusterTreeBuilder(max_leaf_size=32).build(pts)
+    tree = ht.ClusterTreeBuilder(max_leaf_size=32, backend="python").build(pts)
     kw = dict(epsilon=EPS, eta=10.0)
     Hc = ht.build_hmatrix(ht.KernelGenerator(kernels_torch.laplace_kernel_complex_symmetric,
                                              pts, pts), tree, **kw)

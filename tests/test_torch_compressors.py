@@ -88,7 +88,7 @@ def test_build_hmatrix_compressor_parity(compressor, symmetry):
     n, eps = 800, 1e-4
     pts = create_sphere(n)
     tj = hj.ClusterTreeBuilder(max_leaf_size=32, backend="python").build(pts)
-    tt = ht.ClusterTreeBuilder(max_leaf_size=32).build(pts)
+    tt = ht.ClusterTreeBuilder(max_leaf_size=32, backend="python").build(pts)
     kw = dict(epsilon=eps, eta=10.0, symmetry=symmetry, UPLO="L" if symmetry == "S" else "N",
               compressor=compressor, recompress=True)
     Hj = hj.build_hmatrix(hj.KernelGenerator(kj.laplace_kernel_symmetric, pts, pts), tj, **kw)

@@ -41,6 +41,11 @@ SLICE = [
     "htool_tpu_torch.testing.problems",
     "htool_tpu_torch.testing.geometry",
     "htool_tpu_torch.testing.kernels",
+    "htool_tpu_torch.solvers.geneo",
+    "htool_tpu_torch.native",
+    "htool_tpu_torch.clustering.io",
+    "htool_tpu_torch.testing.gmsh",
+    "htool_tpu_torch.utils.profiling",
 ]
 
 
@@ -115,6 +120,9 @@ def test_port_exports_slice_names():
     assert slice_names <= set(htool_tpu_torch.__all__)
     for name in slice_names:
         assert hasattr(htool_tpu_torch, name), name
+    # the GenEO coarse space, exported at the top as the JAX package's
+    # solvers export it
+    assert {"GeneoCoarseSpace", "build_geneo_coarse_space"} <= set(htool_tpu_torch.__all__)
     # block GMRES, the subset generator, the complex plans
     import htool_tpu.generator as gj
     import htool_tpu.ops.tiled_matvec as oj
@@ -129,9 +137,11 @@ def test_port_exports_slice_names():
     # the subpackages' surface of the second slice
     import htool_tpu.hmatrix as hj
     import htool_tpu.testing as tj
+    import htool_tpu.solvers as sj
     import htool_tpu.utils as uj
     import htool_tpu_torch.hmatrix as ht
     import htool_tpu_torch.testing as tt
+    import htool_tpu_torch.solvers as st
     import htool_tpu_torch.utils as ut
 
     for mj, mt, names in (
@@ -142,7 +152,10 @@ def test_port_exports_slice_names():
                   "batched_svd_compress", "batched_recompress", "svd_truncation_rank"]),
         (tj, tt, ["create_disk", "create_rotated_ellipse", "create_random_points",
                   "grid_laplacian"]),
-        (uj, ut, ["Logger", "LogLevel", "logger", "SolverOptions"]),
+        (uj, ut, ["Logger", "LogLevel", "logger", "SolverOptions", "Timer", "annotate",
+                  "device_trace"]),
+        (tj, tt, ["load_gmsh_nodes"]),
+        (sj, st, ["GeneoCoarseSpace", "build_geneo_coarse_space"]),
     ):
         for name in names:
             assert hasattr(mj, name) and hasattr(mt, name), name

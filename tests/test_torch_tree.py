@@ -1,5 +1,6 @@
-"""Parity of the port's host planners with the JAX package's python backend:
-sphere points, cluster trees and block-tree leaf sets."""
+"""Parity of the port's python-backend host planners with the JAX package's:
+sphere points, cluster trees and block-tree leaf sets.  The native planner's
+parity is in ``test_torch_native_planner.py``."""
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ def test_cluster_tree_parity(n_partitions, direction, splitting):
     pts = sphere_jax(1200)
     kw = dict(max_leaf_size=40, direction=direction, splitting=splitting)
     tj = hj.ClusterTreeBuilder(backend="python", **kw).build(pts, n_partitions=n_partitions)
-    tt = ht.ClusterTreeBuilder(**kw).build(pts, n_partitions=n_partitions)
+    tt = ht.ClusterTreeBuilder(backend="python", **kw).build(pts, n_partitions=n_partitions)
     for name in ("permutation", "offsets", "sizes", "depths", "parents", "children",
                  "ranks", "partition_roots"):
         assert np.array_equal(getattr(tj, name), getattr(tt, name)), name
@@ -45,12 +46,12 @@ def _leafset(plan):
 def test_block_tree_leafset_parity(symmetry, UPLO):
     pts = sphere_jax(900)
     tj = hj.ClusterTreeBuilder(max_leaf_size=35, backend="python").build(pts, n_partitions=2)
-    tt = ht.ClusterTreeBuilder(max_leaf_size=35).build(pts, n_partitions=2)
+    tt = ht.ClusterTreeBuilder(max_leaf_size=35, backend="python").build(pts, n_partitions=2)
     kw = dict(epsilon=1e-4, eta=10.0, symmetry=symmetry, UPLO=UPLO)
     pj = hj.plan_block_tree(tj, backend="python", **kw)
-    pt = ht.plan_block_tree(tt, **kw)
+    pt = ht.plan_block_tree(tt, backend="python", **kw)
     assert _leafset(pj) == _leafset(pt)
     assert len(pt.admissible) > 0 and len(pt.dense) > 0
     pj1 = hj.plan_block_tree(tj, target_partition=1, backend="python", **kw)
-    pt1 = ht.plan_block_tree(tt, target_partition=1, **kw)
+    pt1 = ht.plan_block_tree(tt, target_partition=1, backend="python", **kw)
     assert _leafset(pj1) == _leafset(pt1)

@@ -39,3 +39,28 @@ def hmatrix_to_numpy(H) -> dict:
             for b in H.lr_buckets
         ],
     )
+
+
+def lu_to_matrix(lu, piv) -> np.ndarray:
+    """The matrix whose LAPACK-style LU factors (``lu`` with unit lower and
+    upper triangles, 0-based row swaps ``piv``) are given."""
+    lu = np.asarray(lu)
+    M = (np.tril(lu, -1) + np.eye(lu.shape[0])) @ np.triu(lu)
+    for i in reversed(range(lu.shape[0])):
+        j = int(piv[i])
+        if j != i:
+            M[[i, j]] = M[[j, i]]
+    return M
+
+
+def geneo_to_numpy(cs) -> dict:
+    """A JAX-package GeneoCoarseSpace as the dict that
+    ``htool_tpu_torch.convert.geneo_from_numpy`` takes (E rebuilt from its
+    LU factors)."""
+    d = dict(E=lu_to_matrix(cs.E_lu, np.asarray(cs.E_piv)),
+             nu_per_subdomain=np.asarray(cs.nu_per_subdomain),
+             eigenvalues=[np.asarray(e) for e in cs.eigenvalues])
+    if cs.Z is not None:
+        return dict(d, Z=np.asarray(cs.Z))
+    return dict(d, Z_loc=np.asarray(cs.Z_loc), row_off=np.asarray(cs.row_off),
+                row_size=np.asarray(cs.row_size), nu_max=int(cs.nu_max))
