@@ -97,13 +97,39 @@ Phases (each prints one JSON line):
     store; one-level RAS and the additive, deflated and balanced corrections
     through GMRES(60) to 1e-6: every residual < 10·tol, the fewest two-level
     iterations strictly below the one-level count, coarse size = Σ νᵢ; the E
-    product at k = 512 held against its plain version (≤ 1e-12).
+    product at k = 512 held against its plain version (≤ 1e-12);
+18. grid Cholesky — ``cholesky_factorization(method="blr")`` of phase 17's
+    H-matrix (f64, block 256, ε = 1e-8) and ``cholesky_solve`` on 2
+    right-hand sides: residual against the matrix < 1e-6;
+19, 20. two-level BLR — the JAX bench's ``blr2_n10000`` and ``blr2_n100000``
+    rows (bench.py:335-381: sphere, f32, leaf 256, ε = 1e-4, ``build_blr2``
+    defaults, so a dense diagonal at 10,000 and a nested one, three levels,
+    at 100,000): build, ``blr2_lu`` with the error estimate (cold) and again
+    (warm), 10 solves of 8 right-hand sides; the bench's keys, the warm LU's
+    model rate (``blr2_lu_flops``), a profiler window over a warm LU, the
+    peak memory; backward error < 100·ε and the residual on 256 generator
+    rows < 10·ε;
+21. flat BLR on the sphere — ``lu_factorization(method="blr")`` and
+    ``lu_solve`` on cell 6's H-matrix (n = 20,000, f32), residuals against
+    the H-matrix (< 10·1e-4) and on 256 generator rows (< 10·ε); the
+    unfactorized BLR matrix back as an HMatrix (``blr_to_hmatrix``) and
+    applied at k = 8 through the unplanned dense and low-rank kernels (one
+    launch each, no plain version called), against the BLR product and the
+    plain versions (≤ 1e-5);
+22. the flagship with ``local_solver="blr"`` (ε = 1e-4, block 256) beside
+    dense local solves: iterations within 2, true residual < 10·tol, set-up
+    cold and warm, local-factor bytes against the dense inverses';
+23. cell 6 with ``local_solver="blr2"`` and ``blr_coarse_size=1024``: every
+    subdomain must take the two-level format; iterations within 2 of phase
+    16's one-level dense count, residual < 10·tol.
+
+The script's wall time is a line of its own before the kernels line.
 
 The ``kernels`` line before the last lists every entry point (three kernels
 × float32, float64, complex64, complex128, and the planned kernel's split
 two-stage low-rank terms apart) with its launches on the main paths (phases
-3, 7, 11, 12, 16 and 17; also split by k), its time summed over the main path's terms at k = 8 (and,
-under ``k1``, at k = 1) beside the plain version's, its bound (bytes moved
+3, 7, 11, 12, 16, 17 and 21 – 23; also split by k), its time summed over
+the main path's terms at k = 8 (and, under ``k1``, at k = 1) beside the plain version's, its bound (bytes moved
 once over 3.35 TB/s, a split term's staging tensor written and read once
 included, or operations over the peak rate of the type, whichever is
 larger) and, as the library yardstick, ``torch.bmm`` on windows gathered
@@ -183,6 +209,55 @@ def profile_window(name, fn) -> dict:
                 top_ms=[[n[:72], ms, count] for n, (ms, count) in top])
 
 
+def blr2_lu_flops(A) -> float:
+    """Model count of the floating-point operations that ``blr2_lu`` issues
+    on ``A`` (a TwoLevelBLR with a dense or a nested diagonal), from its
+    shapes: getrf 2/3·P³, trsm m·n² per triangular solve, 2mnk per product,
+    and per recompression of c factor pairs [m, r]·[r, n] two QRs of each
+    factor (geqrf + orgqr, 4mr² − 4/3·r³), the r×r product of the R factors,
+    22r³ for its SVD and the two re-expansions.  Complex types count 4 real
+    operations per real one."""
+    import torch
+
+    def qr(m, n):
+        return 4 * m * n * n - 4 * n ** 3 / 3
+
+    def recompress(c, m, n, r):
+        return c * (qr(m, r) + qr(n, r) + 2 * r ** 3 + 22 * r ** 3 + 2 * m * r * r + 2 * r * r * n)
+
+    def sweep(T, m):  # one triangular sweep of a dense-diagonal panel over m columns
+        pairs = T.nC * (T.nC - 1) // 2
+        return T.nC * T.P * T.P * m + pairs * 4 * T.R * T.P * m
+
+    def model(T):
+        nC, P, R = T.nC, T.P, T.R
+        total = 0.0
+        for K in range(nC):
+            a = nC - K - 1
+            if T.diag_mode == "dense":
+                total += 2 * P ** 3 / 3
+            else:
+                sub = T.diag[K]
+                if K > 0:  # the pending update, absorbed
+                    total += sub.nC * 2 * sub.P * R * sub.P
+                    total += recompress(sub.nC * (sub.nC - 1), sub.P, sub.P, sub.R + R)
+                total += model(sub)
+            if a == 0:
+                break
+            if T.diag_mode == "dense":
+                total += 2 * a * R * P * P  # the column and the row panel
+            else:
+                total += 2 * sweep(T.diag[K], a * R)
+            pairs = a * (a - 1)
+            total += pairs * 4 * R * P * R + recompress(pairs, P, P, 2 * R)
+            total += a * (4 * R * P * R + (2 * P * R * P if T.diag_mode == "dense" else 0))
+            if T.diag_mode != "dense":
+                total += recompress(a, P, P, 2 * R)
+        return total
+
+    return model(A) * (4 if A.dtype.is_complex else 1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=100_000, help="number of points")
@@ -193,6 +268,7 @@ def main(argv=None) -> int:
                     help="directory for the per-bucket timing tables and a copy of every "
                          "phase line (chip_smoke_phases.jsonl)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1611,8 +1687,273 @@ def main(argv=None) -> int:
             f"two-level grid: residuals {runs3}")
     require(two_level_min < runs3["one_level"]["iterations"],
             f"two-level grid: no correction beat one level: {runs3}")
-    del H3, gen3, A3, cs3
+    del cs3
+
+    # ---------------- 18. flat BLR Cholesky of the grid Laplacian ----------------
+    # cholesky_factorization(method="blr") of phase 17's H-matrix (f64,
+    # every block dense), solved with cholesky_solve; residual against the
+    # matrix itself
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem_start3 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    Fc3 = ht.cholesky_factorization(H3, tree3, epsilon=1e-8, method="blr")
+    sync()
+    t_chol3 = time.perf_counter() - t0
+    b3c = torch.as_tensor(np.random.RandomState(args.seed + 4).randn(n3, 2), device=dev)
+    t0 = time.perf_counter()
+    x3c = ht.cholesky_solve(Fc3, b3c)
+    sync()
+    t_csolve3 = time.perf_counter() - t0
+    res3c = true_residual(lambda v: A3 @ v, x3c, b3c)
+    emit(dict(phase="blr_cholesky_grid", grid=[g, g, g], n=n3, dtype="float64", block_size=256,
+              epsilon=1e-8, n_cells=Fc3.nL, cell_size=Fc3.b, R_half=Fc3.R_half,
+              cholesky_s=t_chol3, solve_s=t_csolve3, residual=res3c,
+              backward_error_est=Fc3.info["backward_error_est"],
+              n_rank_capped_cells=Fc3.info["n_rank_capped_cells"],
+              factor_bytes=Fc3.memory_bytes(), **Fc3.compression_info(),
+              allocated_at_start_bytes=mem_start3,
+              max_memory_allocated_bytes=torch.cuda.max_memory_allocated()))
+    require(Fc3.kind == "chol" and bool(torch.isfinite(x3c).all()), "grid Cholesky: output")
+    require(res3c < 1e-6, f"grid Cholesky: residual {res3c:.3e}")
+    require(matvec.products == 0, "grid Cholesky: a product kernel ran")
+    del H3, gen3, A3, Fc3
     torch.cuda.empty_cache()
+
+    # ---------------- 19, 20. two-level BLR: the JAX bench's blr2 rows ----------------
+    def blr2_row(n_b, nested):
+        """bench.py:335-381 on the port: sphere, f32, leaf 256, ε = 1e-4,
+        build_blr2 defaults; blr2_lu with the error estimate, cold and warm;
+        10 solves of 8 right-hand sides; checks as the bench's plus a true
+        residual on 256 generator rows."""
+        eps_b = 1e-4
+        pts_b = create_sphere(n_b, seed=args.seed)
+        pts_bd = torch.as_tensor(pts_b.astype(np.float32), device=dev)
+        gen_b = ht.KernelGenerator(laplace_kernel_symmetric, pts_bd, pts_bd)
+        tree_b = ht.build_cluster_tree(pts_b, max_leaf_size=256)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        mem_start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        A_b = ht.build_blr2(gen_b, tree_b, epsilon=eps_b)
+        sync()
+        t_build = time.perf_counter() - t0
+        peak_build = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        F_b = ht.blr2_lu(A_b, error_estimate=True)
+        sync()
+        t_lu = time.perf_counter() - t0
+        peak_lu = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        ht.blr2_lu(A_b, error_estimate=False)
+        sync()
+        t_lu_warm = time.perf_counter() - t0
+        rng_b = np.random.RandomState(args.seed + 5)
+        b_b = torch.as_tensor(rng_b.randn(n_b, 8).astype(np.float32), device=dev)
+        ht.blr2_solve(F_b, b_b, user_numbering=True)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            x_b = ht.blr2_solve(F_b, b_b, user_numbering=True)
+        sync()
+        t_solve = (time.perf_counter() - t0) / 10
+        peak_b = max(peak_build, peak_lu, torch.cuda.max_memory_allocated())
+        rows_b = torch.as_tensor(rng_b.choice(n_b, 256, replace=False), device=dev)
+        A_rows_b = gen_b.block(rows_b, torch.arange(n_b, device=dev)).double()
+        res_b = float(torch.linalg.norm(A_rows_b @ x_b.double() - b_b[rows_b].double())
+                      / torch.linalg.norm(b_b[rows_b].double()))
+        flops = blr2_lu_flops(A_b)
+        prof = profile_window(f"blr2_lu_warm_n{n_b}",
+                              lambda: ht.blr2_lu(A_b, error_estimate=False))
+        mode = "nested" if A_b.info["nested_diag"] else A_b.diag_mode
+        row = dict(
+            phase=f"blr2_n{n_b}", n=n_b, epsilon=eps_b, dtype="float32",
+            build_s=t_build, build_aca_s=A_b.info["offdiag_aca_walltime"],
+            build_diag_s=A_b.info["diag_build_walltime"], lu_s=t_lu, lu_warm_s=t_lu_warm,
+            lu_flops_model=flops, lu_gflops=flops / t_lu_warm / 1e9, solve_s=t_solve, nrhs=8,
+            backward_error_est=F_b.info["backward_error_est"],
+            n_rank_capped=F_b.info["n_rank_capped_pairs"], diag_mode=mode,
+            n_levels=A_b.info["n_levels"], factor_bytes=F_b.memory_bytes(),
+            n_panels=A_b.nC, panel_size=A_b.P, panel_rank_cap=A_b.R,
+            n_aca_failed=A_b.info["n_aca_failed"], residual_256_rows=res_b,
+            max_memory_allocated_bytes=peak_b, allocated_at_start_bytes=mem_start,
+            build_peak_bytes=peak_build, lu_peak_bytes=peak_lu, lu_warm_profile=prof,
+            product_kernel_launches=matvec.products)
+        emit(row)
+        require(bool(torch.isfinite(x_b).all()) and tuple(x_b.shape) == (n_b, 8),
+                f"blr2_n{n_b}: solve output")
+        require(row["backward_error_est"] < 100 * eps_b,
+                f"blr2_n{n_b}: backward error {row['backward_error_est']:.3e} >= 100*eps")
+        require(res_b < 10 * eps_b, f"blr2_n{n_b}: residual {res_b:.3e} >= 10*eps")
+        require(mode == ("nested" if nested else "dense") and row["n_levels"] >= (3 if nested else 2),
+                f"blr2_n{n_b}: diag mode {mode}, {row['n_levels']} levels")
+        del A_b, F_b, gen_b, A_rows_b
+        torch.cuda.empty_cache()
+
+    blr2_row(10_000, nested=False)
+    blr2_row(100_000, nested=True)
+
+    # ---------------- 21. flat BLR LU of the sphere, and back to an H-matrix ----------------
+    # lu_factorization(method="blr") and lu_solve on cell 6's H-matrix
+    # (sphere n = 20,000, f32, ε = 1e-3); the unfactorized BLR matrix re-exported
+    # by blr_to_hmatrix and applied at k = 8 through the unplanned kernels
+    n6, eps6 = 20_000, 1e-4
+    pts6 = create_sphere(n6, seed=args.seed)
+    pts6_d = torch.as_tensor(pts6.astype(np.float32), device=dev)
+    gen6 = ht.KernelGenerator(laplace_kernel_symmetric, pts6_d, pts6_d)
+    tree6 = ht.build_cluster_tree(pts6, max_leaf_size=256, n_partitions=8)
+    H6 = ht.build_hmatrix(gen6, tree6, epsilon=eps, eta=10.0)
+    reset_counts()
+    t0 = time.perf_counter()
+    F6 = ht.lu_factorization(H6, tree6, epsilon=eps6, method="blr")
+    sync()
+    t_lu6 = time.perf_counter() - t0
+    rng6 = np.random.RandomState(args.seed + 6)
+    x6_true = torch.as_tensor(rng6.randn(n6, 2).astype(np.float32), device=dev)
+    b6 = H6 @ x6_true
+    t0 = time.perf_counter()
+    x6 = ht.lu_solve(F6, b6)
+    sync()
+    t_solve6 = time.perf_counter() - t0
+    res6_h = true_residual(H6.__matmul__, x6, b6)
+    rows6 = torch.as_tensor(rng6.choice(n6, 256, replace=False), device=dev)
+    A_rows6 = gen6.block(rows6, torch.arange(n6, device=dev)).double()
+    res6_g = float(torch.linalg.norm(A_rows6 @ x6.double() - b6[rows6].double())
+                   / torch.linalg.norm(b6[rows6].double()))
+    emit(dict(phase="blr_lu_sphere", n=n6, dtype="float32", hmatrix_epsilon=eps,
+              blr_epsilon=eps6, block_size=256, n_cells=F6.nL, cell_size=F6.b,
+              R_half=F6.R_half, lu_s=t_lu6, solve_s=t_solve6, nrhs=2,
+              backward_error_est=F6.info["backward_error_est"],
+              n_rank_capped_cells=F6.info["n_rank_capped_cells"],
+              factor_bytes=F6.memory_bytes(), residual_vs_hmatrix=res6_h,
+              residual_256_generator_rows=res6_g))
+    require(bool(torch.isfinite(x6).all()), "flat BLR LU: non-finite solution")
+    require(res6_h < 10 * eps6, f"flat BLR LU: residual against H {res6_h:.3e}")
+    require(res6_g < 10 * eps, f"flat BLR LU: residual on generator rows {res6_g:.3e}")
+    del F6, A_rows6
+    # the round trip: the BLR matrix as an HMatrix, its product through the
+    # unplanned kernels (one dense and one low-rank term) against the BLR
+    # product, and the same product through the plain versions
+    B6 = ht.to_blr(H6, tree6, epsilon=eps6)
+    Hb6 = ht.blr_to_hmatrix(B6)
+    x6k = torch.as_tensor(rng6.randn(n6, 8).astype(np.float32), device=dev)
+    perm6 = torch.as_tensor(tree6.permutation, device=dev)
+    reset_counts()
+    watch_plain(True)
+    y6 = Hb6 @ x6k
+    sync()
+    watch_plain(False)
+    collect_launches()
+    launches6 = (dense_bucket_matvec.launches, lr_bucket_matvec.launches, matvec.products,
+                 plain_calls[0])
+    y6_blr = torch.empty_like(y6)
+    y6_blr[perm6] = ht.blr_matvec(B6, x6k[perm6])
+    rt_rel = float(torch.linalg.norm(y6 - y6_blr) / torch.linalg.norm(y6_blr))
+    x6c = x6k[perm6]
+    rt_ms = event_ms(lambda: matvec(Hb6, x6c))
+    y6k = matvec(Hb6, x6c)
+    linalg.dense_bucket_matvec = dense_bucket_matvec_reference
+    linalg.lr_bucket_matvec = lr_bucket_matvec_reference
+    try:
+        y6p = matvec(Hb6, x6c)
+        rt_plain_ms = event_ms(lambda: matvec(Hb6, x6c))
+    finally:
+        linalg.dense_bucket_matvec = dense_bucket_matvec
+        linalg.lr_bucket_matvec = lr_bucket_matvec
+    rt_vs_plain = float(torch.linalg.norm(y6k - y6p) / torch.linalg.norm(y6p))
+    emit(dict(phase="blr_to_hmatrix", n=n6, k=8, n_dense_cells=int(Hb6.dense_buckets[0].n_blocks),
+              n_lr_cells=int(Hb6.lr_buckets[0].n_blocks),
+              lr_rank_padded=Hb6.lr_buckets[0].rank_padded,
+              dense_launches=launches6[0], lr_launches=launches6[1], products=launches6[2],
+              plain_version_calls=launches6[3], rel_vs_blr_matvec=rt_rel,
+              kernel_vs_plain_rel=rt_vs_plain, product_ms=rt_ms, plain_ms=rt_plain_ms))
+    require(launches6[:3] == (1, 1, 1) and launches6[3] == 0,
+            f"blr_to_hmatrix: launches (dense, lr, products, plain) {launches6}")
+    require(rt_rel <= 1e-5 and rt_vs_plain <= 1e-5,
+            f"blr_to_hmatrix: rel {rt_rel:.3e}, kernel vs plain {rt_vs_plain:.3e}")
+    del B6, Hb6, y6, y6_blr, y6k, y6p
+
+    # ---------------- 22. the flagship with compressed local solves ----------------
+    # the real flagship (n = 100,000, 64 subdomains, RAS overlap 0.02,
+    # GMRES(60) to 1e-6) with local_solver="blr" (ε = 1e-4, block 256) beside
+    # the dense local inverses
+    blr_eps = 1e-4
+    tree64 = ht.build_cluster_tree(pts, max_leaf_size=256, n_partitions=P)
+    H64 = ht.build_hmatrix(gen, tree64, epsilon=eps, eta=10.0)
+    prepare_tiled_matvec(H64)
+    ov64 = build_geometric_overlap(tree64, 0.02)
+    sync()
+    s_dense = DDMSolver(H64, gen, tree64, schwarz="ras", overlap=ov64, local_solver="dense")
+    dense_bytes = s_dense.precond.inv.numel() * s_dense.precond.inv.element_size()
+    b64 = H64 @ torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+    x_d, it_d = s_dense.solve(b64, tol=tol, krylov="gmres", restart=60, maxiter=200)
+    del s_dense
+    torch.cuda.empty_cache()
+    reset_counts()
+    watch_plain(True)
+    setups = []
+    for _ in range(2):  # cold, warm
+        t0 = time.perf_counter()
+        s_blr = DDMSolver(H64, gen, tree64, schwarz="ras", overlap=ov64, local_solver="blr",
+                          blr_epsilon=blr_eps, blr_block_size=256)
+        setups.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    x_b64, it_b = s_blr.solve(b64, tol=tol, krylov="gmres", restart=60, maxiter=200)
+    t_solve_b = time.perf_counter() - t0
+    watch_plain(False)
+    counts22 = planned_counts(H64)
+    res_b64 = true_residual(H64.__matmul__, x_b64, b64)
+    res_d64 = true_residual(H64.__matmul__, x_d, b64)
+    emit(dict(phase="ddm_blr_local_solves", n=n, subdomains=P, overlap=0.02, tol=tol,
+              local_solver="blr", blr_epsilon=blr_eps, blr_block_size=256,
+              setup_cold_s=setups[0], setup_warm_s=setups[1], solve_s=t_solve_b,
+              iterations=it_b["Nb_it"], dense_iterations=it_d["Nb_it"], residual=res_b64,
+              dense_residual=res_d64, local_factor_bytes=s_blr.precond.memory_bytes(),
+              dense_inverse_bytes=dense_bytes, infos=it_b, **counts22))
+    require(bool(torch.isfinite(x_b64).all()), "BLR local solves: non-finite solution")
+    require(abs(it_b["Nb_it"] - it_d["Nb_it"]) <= 2,
+            f"BLR local solves: {it_b['Nb_it']} iterations against dense {it_d['Nb_it']}")
+    require(res_b64 < 10 * tol, f"BLR local solves: residual {res_b64:.3e} >= 10*tol")
+    del s_blr, H64
+    torch.cuda.empty_cache()
+
+    # ---------------- 23. cell 6 with two-level local solves ----------------
+    # sphere n = 20,000, 8 subdomains, overlap 0.05, local_solver="blr2" with
+    # blr_coarse_size=1024: every subdomain (about 2,800 points) takes the
+    # two-level format
+    prepare_tiled_matvec(H6)
+    ov6 = build_geometric_overlap(tree6, 0.05)
+    b6s = H6 @ torch.as_tensor(rng6.randn(n6).astype(np.float32), device=dev)
+    reset_counts()
+    watch_plain(True)
+    t0 = time.perf_counter()
+    s6 = DDMSolver(H6, gen6, tree6, schwarz="ras", overlap=ov6, local_solver="blr2",
+                   blr_epsilon=blr_eps, blr_coarse_size=1024)
+    t_setup6 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x6s, it6 = s6.solve(b6s, tol=tol, krylov="gmres", restart=60, maxiter=200)
+    t_solve6s = time.perf_counter() - t0
+    watch_plain(False)
+    counts23 = planned_counts(H6)
+    res6s = true_residual(H6.__matmul__, x6s, b6s)
+    kinds6 = [type(F).__name__ for F in s6.precond.factors]
+    emit(dict(phase="ddm_blr2_local_solves", n=n6, subdomains=8, overlap=0.05, tol=tol,
+              local_solver="blr2", blr_epsilon=blr_eps, blr_coarse_size=1024,
+              subdomain_sizes=[int(i.numel()) for i in s6.precond.idx], factor_kinds=kinds6,
+              panels=[int(F.nC) for F in s6.precond.factors], setup_s=t_setup6,
+              solve_s=t_solve6s, iterations=it6["Nb_it"],
+              one_level_dense_iterations=it1["Nb_it"], residual=res6s,
+              local_factor_bytes=s6.precond.memory_bytes(), **counts23))
+    require(all(k == "TwoLevelBLR" for k in kinds6),
+            f"blr2 local solves: not every subdomain took the two-level format: {kinds6}")
+    require(bool(torch.isfinite(x6s).all()) and res6s < 10 * tol,
+            f"blr2 local solves: residual {res6s:.3e}")
+    require(abs(it6["Nb_it"] - it1["Nb_it"]) <= 2,
+            f"blr2 local solves: {it6['Nb_it']} iterations against dense {it1['Nb_it']}")
+    del s6, H6, gen6
+    torch.cuda.empty_cache()
+    emit(dict(phase="wall_time", seconds=time.perf_counter() - t_start))
 
     # ---------------- the kernels line ----------------
     csrc = "htool_tpu_torch/csrc/"

@@ -1,5 +1,5 @@
-"""Carry cluster trees, H-matrices and GenEO coarse spaces across from
-plain NumPy arrays.
+"""Carry cluster trees, H-matrices, GenEO coarse spaces and (factorized or
+not) BLR and two-level BLR matrices across from plain NumPy arrays.
 
 Takes NumPy arrays only (no JAX): a caller that holds a JAX object turns
 its fields into arrays with ``np.asarray`` and hands them over, so both
@@ -13,11 +13,14 @@ import numpy as np
 import torch
 
 from .clustering.cluster_tree import ClusterTree
+from .hmatrix.blr import BLRMatrix
+from .hmatrix.blr2 import TwoLevelBLR
 from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
 from .solvers.geneo import GeneoCoarseSpace
 from .utils.device import resolve_device
 
-__all__ = ["tree_from_numpy", "hmatrix_from_numpy", "geneo_from_numpy"]
+__all__ = ["tree_from_numpy", "hmatrix_from_numpy", "geneo_from_numpy", "blr_from_numpy",
+           "blr2_from_numpy"]
 
 
 def tree_from_numpy(fields: dict) -> ClusterTree:
@@ -90,3 +93,64 @@ def geneo_from_numpy(d: dict, device=None) -> GeneoCoarseSpace:
         Z=None, Z_loc=torch.as_tensor(np.array(d["Z_loc"], copy=True), device=device),
         row_off=np.asarray(d["row_off"], np.int64), row_size=np.asarray(d["row_size"], np.int64),
         nu_max=int(d["nu_max"]), **common)
+
+
+def blr_from_numpy(d: dict, device=None) -> BLRMatrix:
+    """Build a :class:`BLRMatrix` on ``device`` (default: the GPU, see
+    :mod:`.utils.device`) from a dict of its fields: the host tables
+    ``cell_off``, ``cell_size``, ``cls``, ``dense_slot``, ``lr_slot`` and
+    ``permutation``, the cell arrays ``D``, ``U``, ``V``, ``ranks``, the
+    scalars ``n``, ``b``, ``R_half``, ``epsilon``, ``factorized``, ``kind``,
+    and ``piv``: the diagonal LU's row swaps, 0-based as the JAX package
+    keeps them (``jax.scipy.linalg.lu_factor``), or None.  They are stored
+    1-based, as ``torch.linalg.lu_factor`` gives them."""
+    device = resolve_device(device)
+
+    def t(name, dtype=None):
+        return torch.as_tensor(np.array(d[name], copy=True), dtype=dtype, device=device)
+
+    piv = d.get("piv")
+    return BLRMatrix(
+        n=int(d["n"]), b=int(d["b"]),
+        cell_off=np.asarray(d["cell_off"], np.int64), cell_size=np.asarray(d["cell_size"], np.int64),
+        cls=np.array(d["cls"], np.int8), dense_slot=np.array(d["dense_slot"], np.int32),
+        lr_slot=np.array(d["lr_slot"], np.int32),
+        D=t("D"), U=t("U"), V=t("V"), ranks=t("ranks", torch.int32),
+        piv=None if piv is None else torch.as_tensor(np.asarray(piv, np.int64) + 1,
+                                                     dtype=torch.int32, device=device),
+        R_half=int(d["R_half"]), epsilon=float(d["epsilon"]),
+        factorized=bool(d.get("factorized", False)), kind=str(d.get("kind", "lu")),
+        permutation=None if d.get("permutation") is None else np.asarray(d["permutation"]),
+        info=dict(d.get("info", {})),
+    )
+
+
+def blr2_from_numpy(d: dict, device=None) -> TwoLevelBLR:
+    """Build a :class:`TwoLevelBLR` on ``device`` (default: the GPU) from a
+    dict of its fields: ``n``, ``panel_off``, ``panel_size``, ``P``,
+    ``diag_mode``, ``pU``, ``pV``, ``pRank``, ``R``, ``epsilon``,
+    ``factorized``, ``kind``, ``permutation``, and the diagonal: ``Dd``
+    [nC, P, P] with the row permutations ``perms`` of a factorized dense
+    diagonal (A_K[perm] = L_K U_K, the convention of both packages), or
+    ``diag``, a list of dicts, each one for :func:`blr_from_numpy` or, when
+    it holds ``pU``, for this function (a nested panel)."""
+    device = resolve_device(device)
+
+    def t(name, dtype=None):
+        return None if d.get(name) is None else torch.as_tensor(
+            np.array(d[name], copy=True), dtype=dtype, device=device)
+
+    diag = d.get("diag")
+    if diag is not None:
+        diag = [blr2_from_numpy(p, device) if "pU" in p else blr_from_numpy(p, device)
+                for p in diag]
+    return TwoLevelBLR(
+        n=int(d["n"]), panel_off=np.asarray(d["panel_off"], np.int64),
+        panel_size=np.asarray(d["panel_size"], np.int64), P=int(d["P"]),
+        diag_mode=str(d["diag_mode"]), pU=t("pU"), pV=t("pV"), pRank=t("pRank", torch.int32),
+        Dd=t("Dd"), diag=diag, perms=t("perms", torch.int64), R=int(d["R"]),
+        epsilon=float(d["epsilon"]), factorized=bool(d.get("factorized", False)),
+        kind=str(d.get("kind", "lu")),
+        permutation=None if d.get("permutation") is None else np.asarray(d["permutation"]),
+        info=dict(d.get("info", {})),
+    )

@@ -15,10 +15,12 @@ Preconditioner variants (HPDDM ``-hpddm_schwarz_method``):
   partition of unity Dᵢ = 1 on interior / 0 on overlap (ddm.hpp:59-63)
 
 The explicit batched inverse is kept (not LU solves) so that iteration
-counts stay comparable with the reference.  A GenEO coarse space
-(:mod:`.geneo`) passed as ``coarse=`` makes the preconditioner two-level,
-with the additive, deflated or balanced correction.  The BLR local solvers
-are not ported yet.
+counts stay comparable with the reference.  ``local_solver="blr"`` and
+``"blr2"`` replace the dense inverses by compressed LU factorizations of
+each subdomain matrix (:class:`BLRSchwarzPreconditioner`, the reference's
+``LocalHMatrixSolver``).  A GenEO coarse space (:mod:`.geneo`) passed as
+``coarse=`` makes the preconditioner two-level, with the additive, deflated
+or balanced correction.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .krylov import KrylovResult, block_gmres, cg, gmres
 __all__ = [
     "build_geometric_overlap",
     "SchwarzPreconditioner",
+    "BLRSchwarzPreconditioner",
     "DDMSolver",
 ]
 
@@ -165,6 +168,95 @@ def _build_schwarz(
     )
 
 
+@dataclass
+class BLRSchwarzPreconditioner:
+    """One-level Schwarz with BLR-compressed local factorizations — the
+    H-LU local solver mode (``LocalHMatrixSolver``,
+    ``solvers/local_solvers/local_hmatrix_solvers.hpp:14-85``): each
+    subdomain matrix is assembled as a BLR (or two-level BLR) matrix and
+    LU-factorized in compressed form, so large subdomains stay
+    sub-quadratic in memory.  The apply solves each subdomain in turn."""
+
+    n_global: int
+    idx: list  # per-subdomain global cluster indices (int64 tensors)
+    weights: list  # per-subdomain scatter weights (real tensors)
+    factors: list  # per-subdomain factorized BLRMatrix or TwoLevelBLR
+    variant: str = "ras"
+
+    def apply(self, r):
+        from ..hmatrix.blr import blr_solve
+        from ..hmatrix.blr2 import TwoLevelBLR, blr2_solve
+
+        squeeze = r.ndim == 1
+        if squeeze:
+            r = r[:, None]
+        z = torch.zeros_like(r)
+        for idx, w, F in zip(self.idx, self.weights, self.factors):
+            solve = blr2_solve if isinstance(F, TwoLevelBLR) else blr_solve
+            z_loc = solve(F, r[idx], user_numbering=True)
+            z.index_add_(0, idx, (z_loc * w[:, None].to(z_loc.dtype)).to(z.dtype))
+        return z[:, 0] if squeeze else z
+
+    def __call__(self, r):
+        return self.apply(r)
+
+    def memory_bytes(self) -> int:
+        """Bytes of the local factors."""
+        return sum(F.memory_bytes() for F in self.factors)
+
+
+def _build_blr_schwarz(
+    generator: Generator,
+    tree: ClusterTree,
+    overlap: Optional[list[np.ndarray]],
+    variant: str,
+    blr_epsilon: float = 1e-6,
+    blr_block_size: int = 256,
+    hierarchical: bool = False,
+    coarse_size: int = 2048,
+) -> BLRSchwarzPreconditioner:
+    from ..clustering.cluster_tree import ClusterTreeBuilder
+    from ..generator import SubsetGenerator
+    from ..hmatrix.blr import blr_lu, build_blr
+    from ..hmatrix.blr2 import blr2_lu, build_blr2
+
+    offs, sizes = tree.partition_offsets_sizes()
+    perm = tree.permutation
+    device = generator.device
+    real = torch.empty((), dtype=generator.dtype).real.dtype
+
+    idxs, wtss, factors = [], [], []
+    for p in range(tree.n_partitions):
+        off, sz = int(offs[p]), int(sizes[p])
+        interior = np.arange(off, off + sz)
+        ov = (np.asarray(overlap[p], np.int64)
+              if (overlap is not None and variant in ("asm", "ras"))
+              else np.zeros(0, np.int64))
+        idx = np.concatenate([interior, ov])
+        w = np.ones(idx.size)
+        if variant == "ras":
+            w[interior.size :] = 0.0
+        sub_user = perm[idx]
+        sub_tree = ClusterTreeBuilder(
+            max_leaf_size=min(blr_block_size, max(32, idx.size // 8))
+        ).build(tree.points[sub_user])
+        sub_gen = SubsetGenerator(generator, sub_user)
+        if hierarchical and idx.size > 2 * coarse_size:
+            # hierarchical local factorization (the reference's H-LU local
+            # solver, local_hmatrix_solvers.hpp:14-85, with recursive
+            # asymptotics via the two-level panel format)
+            B2 = build_blr2(sub_gen, sub_tree, epsilon=blr_epsilon, coarse_size=coarse_size,
+                            block_size=blr_block_size)
+            factors.append(blr2_lu(B2, error_estimate=False))
+        else:
+            B = build_blr(sub_gen, sub_tree, epsilon=blr_epsilon, block_size=blr_block_size)
+            factors.append(blr_lu(B))
+        idxs.append(torch.as_tensor(idx, device=device))
+        wtss.append(torch.as_tensor(w, dtype=real, device=device))
+    return BLRSchwarzPreconditioner(n_global=tree.n_points, idx=idxs, weights=wtss,
+                                    factors=factors, variant=variant)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -191,12 +283,11 @@ class DDMSolver:
         overlap_radius: float = 0.0,
         coarse=None,  # optional GeneoCoarseSpace
         coarse_correction: str = "additive",
-        local_solver: str = "dense",
+        local_solver: str = "dense",  # "dense" | "blr" (flat) | "blr2" (hierarchical)
+        blr_epsilon: float = 1e-6,
+        blr_block_size: int = 256,
+        blr_coarse_size: int = 2048,
     ):
-        if local_solver in ("blr", "blr2"):
-            raise NotImplementedError(
-                f"local_solver={local_solver!r} is not ported yet (ROADMAP Queue 1 item 2)"
-            )
         self.tree = tree
         self.generator = generator
         self.schwarz = schwarz
@@ -217,12 +308,19 @@ class DDMSolver:
         if schwarz in ("jacobi", "asm", "ras"):
             if overlap is None and overlap_radius > 0 and schwarz in ("asm", "ras"):
                 overlap = build_geometric_overlap(tree, overlap_radius)
-            if local_solver != "dense":
+            if local_solver in ("blr", "blr2"):
+                self.precond = _build_blr_schwarz(
+                    generator, tree, overlap, schwarz, blr_epsilon, blr_block_size,
+                    hierarchical=(local_solver == "blr2"), coarse_size=blr_coarse_size,
+                )
+                self.infos["Local_solver"] = local_solver
+            elif local_solver == "dense":
+                self.precond = _build_schwarz(generator, tree, overlap, schwarz, dtype)
+                self.infos["Local_solver"] = "dense"
+                self.infos["Local_size_max"] = int(self.precond.n_sub_sizes.max())
+            else:
                 raise ValueError(f"unknown local solver {local_solver!r}")
-            self.precond = _build_schwarz(generator, tree, overlap, schwarz, dtype)
             _sync(self.device)
-            self.infos["Local_solver"] = "dense"
-            self.infos["Local_size_max"] = int(self.precond.n_sub_sizes.max())
             self.infos["Precond"] = schwarz
             self.infos["Nb_subdomains"] = tree.n_partitions
         elif schwarz == "none":

@@ -89,8 +89,7 @@ def test_krylov_multi_rhs_against_dense():
 
 def test_unported_solver_options_raise(problem):
     p = problem
-    # the BLR local solvers are still unported; coarse= (GenEO) is ported,
-    # see test_torch_geneo.py
-    for local_solver in ("blr", "blr2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DDMSolver(p["H_t"], p["gen_t"], p["tree_t"], local_solver=local_solver)
+    # every local solver of the reference is ported (the BLR ones are held
+    # against it in test_torch_ddm_blr.py); one neither package has raises
+    with pytest.raises(ValueError, match="local solver"):
+        DDMSolver(p["H_t"], p["gen_t"], p["tree_t"], local_solver="lu")

@@ -46,6 +46,9 @@ SLICE = [
     "htool_tpu_torch.clustering.io",
     "htool_tpu_torch.testing.gmsh",
     "htool_tpu_torch.utils.profiling",
+    "htool_tpu_torch.hmatrix.blr",
+    "htool_tpu_torch.hmatrix.blr2",
+    "htool_tpu_torch.hmatrix.conversion",
 ]
 
 
@@ -159,3 +162,26 @@ def test_port_exports_slice_names():
     ):
         for name in names:
             assert hasattr(mj, name) and hasattr(mt, name), name
+
+
+def test_port_exports_factorization_names():
+    """The factorization layer's names, at the top as the JAX package
+    exports them (``htool_tpu/__init__.py``) and in ``hmatrix``."""
+    import htool_tpu
+    import htool_tpu.hmatrix as hj
+    import htool_tpu_torch
+    import htool_tpu_torch.hmatrix as ht
+    import htool_tpu_torch.convert as ct
+
+    top = {"build_blr", "blr_lu", "blr_cholesky", "blr_solve", "build_blr2", "blr2_lu",
+           "blr2_solve", "to_blr", "to_blr2", "lu_factorization", "lu_solve",
+           "cholesky_factorization", "cholesky_solve", "hmatrix_hmatrix_product"}
+    jax_top = set(htool_tpu.__all__) - {"to_device", "to_host"}  # utils/cxfer, not ported
+    assert top | jax_top <= set(htool_tpu_torch.__all__)
+    for name in top | jax_top:
+        assert hasattr(htool_tpu_torch, name), name
+    for name in ("BLRMatrix", "TwoLevelBLR", "blr_matmul", "blr_matvec", "blr2_backward_error",
+                 "blr2_cholesky", "blr2_matvec", "recompress_hmatrix", "retile_blr",
+                 "common_grid_blr"):
+        assert hasattr(hj, name) and hasattr(ht, name), name
+    assert hasattr(ct, "blr_from_numpy") and hasattr(ct, "blr2_from_numpy")

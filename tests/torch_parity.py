@@ -3,15 +3,22 @@ into the plain NumPy dicts that ``htool_tpu_torch.convert`` takes.
 
 Importing this module also asks the port for the CPU: its entry points put
 NumPy input on the GPU unless told otherwise, and these tests run without
-one.  Every ``tests/test_torch_*.py`` imports it."""
+one.  Every ``tests/test_torch_*.py`` imports it.  It also keeps torch's and
+NumPy's BLAS work on one thread each: the suite runs in several worker
+processes, each with JAX's own thread pool, and more threads on top of
+those only contend for the same cores."""
 
 import dataclasses
 
 import numpy as np
+import torch
+from threadpoolctl import threadpool_limits
 
 import htool_tpu_torch
 
 htool_tpu_torch.set_default_device("cpu")
+torch.set_num_threads(1)
+threadpool_limits(1, user_api="blas")
 
 
 def tree_fields(tree) -> dict:
@@ -64,3 +71,29 @@ def geneo_to_numpy(cs) -> dict:
         return dict(d, Z=np.asarray(cs.Z))
     return dict(d, Z_loc=np.asarray(cs.Z_loc), row_off=np.asarray(cs.row_off),
                 row_size=np.asarray(cs.row_size), nu_max=int(cs.nu_max))
+
+
+_BLR_FIELDS = ("n", "cell_off", "cell_size", "b", "cls", "dense_slot", "lr_slot", "D", "U", "V",
+               "ranks", "piv", "R_half", "epsilon", "factorized", "kind", "permutation")
+_BLR2_FIELDS = ("n", "panel_off", "panel_size", "P", "diag_mode", "pU", "pV", "pRank", "Dd",
+                "perms", "R", "epsilon", "factorized", "kind", "permutation")
+
+
+def _field(v):
+    return v if v is None or isinstance(v, (int, float, str, bool)) else np.asarray(v)
+
+
+def blr_to_numpy(B) -> dict:
+    """A JAX-package BLRMatrix (factorized or not) as the dict that
+    ``htool_tpu_torch.convert.blr_from_numpy`` takes."""
+    return {name: _field(getattr(B, name)) for name in _BLR_FIELDS}
+
+
+def blr2_to_numpy(T) -> dict:
+    """A JAX-package TwoLevelBLR (factorized or not, diagonal panels
+    dense, flat BLR or nested) as the dict that
+    ``htool_tpu_torch.convert.blr2_from_numpy`` takes."""
+    d = {name: _field(getattr(T, name)) for name in _BLR2_FIELDS}
+    if T.diag is not None:
+        d["diag"] = [blr2_to_numpy(p) if hasattr(p, "pU") else blr_to_numpy(p) for p in T.diag]
+    return d
