@@ -121,14 +121,40 @@ Phases (each prints one JSON line):
     cold and warm, local-factor bytes against the dense inverses';
 23. cell 6 with ``local_solver="blr2"`` and ``blr_coarse_size=1024``: every
     subdomain must take the two-level format; iterations within 2 of phase
-    16's one-level dense count, residual < 10·tol.
+    16's one-level dense count, residual < 10·tol;
+24. distributed operator — the flagship operator on phase 7's tree,
+    row-partitioned over P = 8 partitions that all live on this card
+    (``build_distributed_hmatrix``, and phase 7's symmetric "S"/"L" block rows
+    wired by ``build_distributed_from_local_hmatrices``), cold and warm: g2g
+    N and T and l2l N at k = 1 and 8 through the unplanned kernels (the
+    products within 1e-5 of the global H-matrix's on the same tree and within
+    ε of 256 generator rows; every bucket tensor on the card; launches of
+    both unplanned kernels, no plain version), then ``DistributedDDMSolver``
+    (RAS, overlap 0.02, dense local LU) + GMRES(60) to 1e-6 cold and warm,
+    beside the replicated ``DDMSolver`` on the same operator: the same
+    iteration count, true residuals < 10·tol; the halo's colours, ``H_max``
+    and ``n_ext_max``, a profiler window over the warm solve, the peak
+    memory, and the largest tensors still allocated when the phase starts;
+25. the process-group route — ``initialize_multihost`` over NCCL at world
+    size 1 (a file store in a temporary directory), phase 24's operator
+    rebuilt on ``global_mesh``: the backend must read ``nccl``, the g2g
+    products at k = 8 and the RAS solution equal phase 24's to 1e-6 and the
+    solve takes phase 24's iteration count; the group is destroyed at the end;
+26. cell 6 distributed — sphere n = 20,000, 8 partitions, overlap 0.05,
+    GenEO ν = 2 on the distributed operator, in float32 and again in
+    float64: the two-level additive solve on the partition slices with the
+    replicated and with the local store beside the replicated two-level
+    solver (the counts must be equal in float64; in float32 the local LU and
+    the explicit inverses differ by rounding and the counts are reported);
+    one level with BLR local solves (ε 1e-4, block 256, float32) within 2
+    iterations of dense local solves; every residual < 10·tol.
 
 The script's wall time is a line of its own before the kernels line.
 
 The ``kernels`` line before the last lists every entry point (three kernels
 × float32, float64, complex64, complex128, and the planned kernel's split
 two-stage low-rank terms apart) with its launches on the main paths (phases
-3, 7, 11, 12, 16, 17 and 21 – 23; also split by k), its time summed over
+3, 7, 11, 12, 16, 17 and 21 – 26; also split by k), its time summed over
 the main path's terms at k = 8 (and, under ``k1``, at k = 1) beside the plain version's, its bound (bytes moved
 once over 3.35 TB/s, a split term's staging tensor written and read once
 included, or operations over the peak rate of the type, whichever is
@@ -145,11 +171,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -1481,7 +1510,7 @@ def main(argv=None) -> int:
     # ---------------- 16. two-level path: GenEO on the sphere ----------------
     # the JAX bench's two-level row (ddm2_n20000): RAS + GenEO (ν = 2, local
     # store, additive) + GMRES(60), beside the one-level solve
-    del Hc, HH, gen_c, gen_h
+    del Hc, HH, gen_c, gen_h, buckets_c, buckets_h
     torch.cuda.empty_cache()
     GENEO_INFOS = ("GenEO_coarse_space_size", "GenEO_geev_walltime", "GenEO_ZtAZ_walltime",
                    "GenEO_facto_coarse_operator_walltime")
@@ -1952,6 +1981,303 @@ def main(argv=None) -> int:
     require(abs(it6["Nb_it"] - it1["Nb_it"]) <= 2,
             f"blr2 local solves: {it6['Nb_it']} iterations against dense {it1['Nb_it']}")
     del s6, H6, gen6
+    torch.cuda.empty_cache()
+    # ---------------- 24. distributed operator: eight partitions on the card ----------------
+    # the flagship operator row-partitioned over P = 8 partitions, all on this
+    # card (the tree of phase 7): builds, g2g and l2l products through the
+    # unplanned kernels, and RAS + GMRES on the partition slices beside the
+    # replicated solver on the same operator
+    from htool_tpu_torch.parallel import (
+        build_distributed_from_local_hmatrices,
+        build_distributed_hmatrix,
+        default_mesh,
+        distributed_hmatrix_info,
+        global_mesh,
+        initialize_multihost,
+    )
+    from htool_tpu_torch.solvers import DistributedDDMSolver
+
+    t_phase = time.perf_counter()
+    del HS, hs_buckets, pts6_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem_start24 = torch.cuda.memory_allocated()
+    with warnings.catch_warnings():  # the scan touches deprecated module attributes
+        warnings.simplefilter("ignore", FutureWarning)
+        live24 = sorted(((t.numel() * t.element_size(), list(t.shape), str(t.dtype))
+                         for t in gc.get_objects() if torch.is_tensor(t) and t.is_cuda),
+                        reverse=True)[:6]
+    mesh8 = default_mesh(P8, device=dev)
+    builds24 = []
+    for _ in range(2):  # cold, warm
+        t0 = time.perf_counter()
+        D24 = build_distributed_hmatrix(gen, tree8, mesh8, epsilon=eps, eta=10.0)
+        sync()
+        builds24.append(time.perf_counter() - t0)
+    sym_builds24 = []
+    for _ in range(2):  # cold, warm: phase 7's symmetric block rows, wired
+        t0 = time.perf_counter()
+        rows_s = [ht.HMatrixBuilder(epsilon=eps, eta=10.0, symmetry="S", UPLO="L",
+                                    partition_number_for_symmetry=p).build(gen, tree8,
+                                                                           target_partition=p)
+                  for p in range(P8)]
+        DS24 = build_distributed_from_local_hmatrices(rows_s, tree8, mesh8, symmetry="S",
+                                                      UPLO="L")
+        sync()
+        sym_builds24.append(time.perf_counter() - t0)
+        del rows_s
+
+    def part_bytes(d):
+        """Bytes of each partition's padded bucket slices."""
+        return sum(t[0].numel() * t.element_size() for b in d.dense_buckets + d.lr_buckets
+                   for t in ((b.data,) if isinstance(b, ht.DenseBucket) else (b.U, b.V)))
+
+    d_tensors = [t for d in (D24, DS24) for b in d.dense_buckets + d.lr_buckets
+                 for t in ((b.data,) if isinstance(b, ht.DenseBucket) else (b.U, b.V))
+                 + (b.t_off, b.s_off)]
+    require(all(t.is_cuda for t in d_tensors) and D24.device.type == "cuda",
+            "distributed operator: a bucket tensor is not on the card")
+    del d_tensors
+    require(D24.dense_buckets[0].data.shape[0] == P8 and mesh8.n_local == P8,
+            "distributed operator: not 8 partitions in this process")
+    # the global H-matrix on the same tree, and its products (not counted)
+    H8 = ht.build_hmatrix(gen, tree8, epsilon=eps, eta=10.0)
+    x24 = {k: torch.as_tensor(rng.randn(n, k).astype(np.float32), device=dev) for k in (1, 8)}
+    ref24 = {(op, k): matvec_user(H8, x24[k], op=op) for op in ("N", "T") for k in (1, 8)}
+    sync()
+    del H8
+
+    reset_counts()
+    watch_plain(True)
+    y24, ys24 = {}, {}
+    for k in (1, 8):
+        for op in ("N", "T"):
+            y24[op, k] = D24.matvec(x24[k], op=op)
+            ys24[op, k] = DS24.matvec(x24[k], op=op)
+        xl = D24.to_local_layout(x24[k][perm8])
+        y_l = torch.empty_like(x24[k])
+        y_l[perm8] = D24.to_global_layout(D24.matvec_local(xl))
+        y24["l2l_N", k] = y_l
+    sync()
+    t0 = time.perf_counter()
+    s24 = DistributedDDMSolver(D24, gen, tree8, schwarz="ras", overlap_radius=0.02,
+                               local_solver="dense")
+    setup24 = [time.perf_counter() - t0]
+    x_true24 = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+    b24 = D24 @ x_true24
+    solves24 = []
+    for _ in range(2):  # cold, warm
+        t0 = time.perf_counter()
+        xd24, it24 = s24.solve(b24, tol=tol, krylov="gmres", restart=60, maxiter=200)
+        solves24.append(time.perf_counter() - t0)
+    res24 = true_residual(D24.__matmul__, xd24, b24)
+    sync()
+    watch_plain(False)
+    plain24 = plain_calls[0]
+    collect_launches()
+    launches24 = dict(dense=dense_bucket_matvec.launches, lr=lr_bucket_matvec.launches,
+                      tiled=tiled_bucket_matvec.launches, products=matvec.products)
+    t0 = time.perf_counter()
+    s24 = DistributedDDMSolver(D24, gen, tree8, schwarz="ras", overlap_radius=0.02,
+                               local_solver="dense")
+    setup24.append(time.perf_counter() - t0)
+    prof24 = profile_window("dist_ras_gmres_warm", lambda: s24.solve(
+        b24, tol=tol, krylov="gmres", restart=60, maxiter=200))
+    t0 = time.perf_counter()
+    s24r = DDMSolver(D24, gen, tree8, schwarz="ras", overlap_radius=0.02, local_solver="dense")
+    setup24r = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xr24, itr24 = s24r.solve(b24, tol=tol, krylov="gmres", restart=60, maxiter=200)
+    solve24r = time.perf_counter() - t0
+    res24r = true_residual(D24.__matmul__, xr24, b24)
+    del s24r
+    ms24 = {f"g2g_{op}_k{k}": event_ms(lambda op=op, k=k: D24.matvec(x24[k], op=op))
+            for k in (1, 8) for op in ("N", "T")}
+    for k in (1, 8):
+        xl = D24.to_local_layout(x24[k][perm8])
+        ms24[f"l2l_N_k{k}"] = event_ms(lambda xl=xl: D24.matvec_local(xl))
+    ms24["symmetric_g2g_N_k8"] = event_ms(lambda: DS24.matvec(x24[8]))
+    err_global24 = {f"{op}/k{k}": rel(y24[op, k], ref24[op, k]) for op in ("N", "T")
+                    for k in (1, 8)}
+    err_global24.update({f"l2l_N/k{k}": rel(y24["l2l_N", k], ref24["N", k]) for k in (1, 8)})
+    # the kernel is symmetric on one point set: the sampled rows of A are
+    # those of Aᵀ, so the row oracle also holds the 'T' products
+    err_oracle24 = {f"{key[0]}/k{key[1]}": rel(v[sub_t], A_rows @ x24[key[1]].double())
+                    for key, v in y24.items()}
+    err_oracle24.update({f"symmetric_{op}/k{k}": rel(ys24[op, k][sub_t],
+                                                      A_rows @ x24[k].double())
+                         for op, k in ys24})
+    info24 = distributed_hmatrix_info(D24)
+    emit(dict(
+        phase="dist_n100000", n=n, partitions=P8, epsilon=eps, dtype="float32",
+        allocated_at_start_bytes=mem_start24, largest_live_tensors_at_start=live24,
+        build_cold_s=builds24[0], build_warm_s=builds24[1],
+        symmetric_rows_build_and_wire_cold_s=sym_builds24[0],
+        symmetric_rows_build_and_wire_warm_s=sym_builds24[1],
+        m_loc_max=D24.m_loc_max, part_sizes=D24.part_sizes.tolist(),
+        bytes_per_partition=part_bytes(D24), symmetric_bytes_per_partition=part_bytes(DS24),
+        compression_ratio=info24["compression_ratio"],
+        n_dense_buckets=len(D24.dense_buckets), n_lr_buckets=len(D24.lr_buckets),
+        product_ms=ms24, rel_vs_global_hmatrix=err_global24, rel_vs_oracle_256_rows=err_oracle24,
+        halo_colors=s24.halo.n_colors, H_max=s24.halo.H_max, n_ext_max=s24.halo.n_ext_max,
+        setup_cold_s=setup24[0], setup_warm_s=setup24[1], solve_cold_s=solves24[0],
+        solve_warm_s=solves24[1], iterations=it24["Nb_it"], residual=res24,
+        replicated_setup_s=setup24r, replicated_solve_s=solve24r,
+        replicated_iterations=itr24["Nb_it"], replicated_residual=res24r,
+        solve_warm_profile=prof24, launches=launches24, plain_version_calls=plain24,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), infos=it24,
+        phase_s=time.perf_counter() - t_phase))
+    require(max(err_global24.values()) <= 1e-5,
+            f"distributed products against the global H-matrix: {err_global24}")
+    require(max(err_oracle24.values()) < eps, f"distributed products against the oracle: "
+                                               f"{err_oracle24}")
+    require(launches24["dense"] > 0 and launches24["lr"] > 0 and launches24["tiled"] == 0
+            and plain24 == 0, f"distributed path launches {launches24}, plain calls {plain24}")
+    require(bool(torch.isfinite(xd24).all()) and res24 < 10 * tol,
+            f"distributed RAS: residual {res24:.3e}")
+    require(it24["Nb_it"] == itr24["Nb_it"] and res24r < 10 * tol,
+            f"distributed RAS took {it24['Nb_it']} iterations, the replicated solver "
+            f"{itr24['Nb_it']} (residual {res24r:.3e})")
+
+    # ---------------- 25. the process-group route over NCCL, world size 1 ----------------
+    # the same operator on a mesh of one NCCL process (a file store in a
+    # temporary directory): every collective goes through the group
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp25:
+        initialize_multihost(f"file://{tmp25}/store", 1, 0, device=dev)
+        try:
+            mesh25 = global_mesh(P8, device=dev)
+            backend25 = mesh25.backend
+            D25 = build_distributed_hmatrix(gen, tree8, mesh25, epsilon=eps, eta=10.0)
+            reset_counts()
+            watch_plain(True)
+            y25 = {op: D25.matvec(x24[8], op=op) for op in ("N", "T")}
+            t0 = time.perf_counter()
+            s25 = DistributedDDMSolver(D25, gen, tree8, schwarz="ras", overlap_radius=0.02,
+                                       local_solver="dense")
+            setup25 = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            x25, it25 = s25.solve(b24, tol=tol, krylov="gmres", restart=60, maxiter=200)
+            solve25 = time.perf_counter() - t0
+            res25 = true_residual(D25.__matmul__, x25, b24)
+            sync()
+            watch_plain(False)
+            plain25 = plain_calls[0]
+            collect_launches()
+            launches25 = dict(dense=dense_bucket_matvec.launches, lr=lr_bucket_matvec.launches)
+            ms25 = {f"g2g_{op}_k8": event_ms(lambda op=op: D25.matvec(x24[8], op=op))
+                    for op in ("N", "T")}
+            del s25, D25
+        finally:
+            torch.distributed.destroy_process_group()
+    rel25 = {op: rel(y25[op], y24[op, 8]) for op in ("N", "T")}
+    x_rel25 = rel(x25, xd24)
+    emit(dict(phase="dist_nccl_world1", backend=backend25, partitions=P8, world_size=1,
+              product_ms=ms25, rel_vs_phase24=rel25, setup_s=setup25, solve_s=solve25,
+              iterations=it25["Nb_it"], phase24_iterations=it24["Nb_it"], residual=res25,
+              solution_rel_vs_phase24=x_rel25, launches=launches25,
+              plain_version_calls=plain25, phase_s=time.perf_counter() - t_phase))
+    require(backend25 == "nccl", f"process group backend {backend25}")
+    require(max(rel25.values()) <= 1e-6 and x_rel25 <= 1e-6,
+            f"NCCL route against phase 24: products {rel25}, solution {x_rel25:.3e}")
+    require(it25["Nb_it"] == it24["Nb_it"] and res25 < 10 * tol,
+            f"NCCL route RAS: {it25['Nb_it']} iterations (phase 24: {it24['Nb_it']}), "
+            f"residual {res25:.3e}")
+    require(launches25["dense"] > 0 and launches25["lr"] > 0 and plain25 == 0,
+            f"NCCL route launches {launches25}, plain calls {plain25}")
+    del s24, D24, DS24, y24, ys24, ref24
+    torch.cuda.empty_cache()
+
+    # ---------------- 26. cell 6 distributed: two levels and BLR local solves ----------------
+    # sphere n = 20,000, 8 partitions, overlap 0.05, GenEO ν = 2 on the
+    # distributed operator: the two-level additive solve on the partition
+    # slices with the replicated and the local store, beside the replicated
+    # two-level solver; one level with BLR local solves (ε 1e-4, block 256)
+    # beside dense ones.  In float32 (cell 6) and again in float64: the
+    # distributed solver's local LU and the replicated solver's explicit
+    # inverses differ by rounding, which in float32 can move the iteration
+    # at which the residual crosses tol; the counts must be equal in float64
+    t_phase = time.perf_counter()
+    n26 = 20_000
+    pts26 = create_sphere(n26, seed=args.seed)
+    tree26 = ht.build_cluster_tree(pts26, max_leaf_size=256, n_partitions=8)
+    ov26 = build_geometric_overlap(tree26, 0.05)
+    reset_counts()
+    watch_plain(True)
+
+    def cell26(real):
+        pts_d26 = torch.as_tensor(pts26.astype(real), device=dev)
+        gen26 = ht.KernelGenerator(laplace_kernel_symmetric, pts_d26, pts_d26)
+        t0 = time.perf_counter()
+        D26 = build_distributed_hmatrix(gen26, tree26, default_mesh(8, device=dev),
+                                        epsilon=eps, eta=10.0)
+        sync()
+        out = dict(dtype=str(D26.dtype), build_s=time.perf_counter() - t0, coarse_space_s={},
+                   runs={})
+        b26 = D26 @ torch.as_tensor(np.random.RandomState(args.seed + 7).randn(n26)
+                                    .astype(real), device=dev)
+
+        def A26(v):
+            return D26.to_global_layout(D26.matvec_local(D26.to_local_layout(v)))
+
+        cs26 = {}
+        for store in ("replicated", "local"):
+            t0 = time.perf_counter()
+            cs26[store] = build_geneo_coarse_space(gen26, tree26, ov26, A26, nu=2,
+                                                   symmetry="S", store=store)
+            out["coarse_space_s"][store] = time.perf_counter() - t0
+        out["coarse_size"] = cs26["local"].size
+
+        def run(name, solver_cls, **kw):
+            t0 = time.perf_counter()
+            s = solver_cls(D26, gen26, tree26, schwarz="ras", overlap=ov26, **kw)
+            t_setup = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            x, it = s.solve(b26, tol=tol, krylov="gmres", restart=60, maxiter=200)
+            sync()
+            out["runs"][name] = dict(iterations=it["Nb_it"], setup_s=t_setup,
+                                     solve_s=time.perf_counter() - t0,
+                                     residual=true_residual(D26.__matmul__, x, b26),
+                                     finite=bool(torch.isfinite(x).all()))
+
+        run("replicated_two_level", DDMSolver, coarse=cs26["replicated"],
+            coarse_correction="additive")
+        for store in ("replicated", "local"):
+            run(f"dist_two_level_{store}", DistributedDDMSolver, coarse=cs26[store],
+                coarse_correction="additive")
+        if real == np.float32:
+            run("dist_one_level_dense", DistributedDDMSolver, local_solver="dense")
+            run("dist_one_level_blr", DistributedDDMSolver, local_solver="blr",
+                blr_epsilon=1e-4, blr_block_size=256)
+        return out
+
+    cells26 = {"float32": cell26(np.float32), "float64": cell26(np.float64)}
+    watch_plain(False)
+    plain26 = plain_calls[0]
+    collect_launches()
+    launches26 = dict(dense=dense_bucket_matvec.launches, lr=lr_bucket_matvec.launches,
+                      by_dtype={f"{w.__name__}[{str(dt).removeprefix('torch.')}]": c
+                                for w in (dense_bucket_matvec, lr_bucket_matvec)
+                                for dt, c in w.launches_by_dtype.items()})
+    emit(dict(phase="dist2_n20000", n=n26, partitions=8, epsilon=eps, overlap=0.05, nu=2,
+              tol=tol, cells=cells26, launches=launches26, plain_version_calls=plain26,
+              reference_two_level_iterations=ref_iters_2["ras_geneo_additive_2level_20k"],
+              phase_s=time.perf_counter() - t_phase))
+    runs32, runs64 = cells26["float32"]["runs"], cells26["float64"]["runs"]
+    require(all(v["finite"] and v["residual"] < 10 * tol
+                for c in cells26.values() for v in c["runs"].values()),
+            f"dist2_n20000: residuals {cells26}")
+    rep64 = runs64["replicated_two_level"]["iterations"]
+    require(all(runs64[f"dist_two_level_{s}"]["iterations"] == rep64
+                for s in ("replicated", "local")),
+            f"dist2_n20000: float64 two-level iterations against the replicated {rep64}: "
+            f"{runs64}")
+    require(abs(runs32["dist_one_level_blr"]["iterations"]
+                - runs32["dist_one_level_dense"]["iterations"]) <= 2,
+            f"dist2_n20000: BLR local solves against dense: {runs32}")
+    require(launches26["dense"] > 0 and launches26["lr"] > 0 and plain26 == 0,
+            f"dist2_n20000: launches {launches26}, plain calls {plain26}")
     torch.cuda.empty_cache()
     emit(dict(phase="wall_time", seconds=time.perf_counter() - t_start))
 

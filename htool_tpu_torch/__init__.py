@@ -8,7 +8,9 @@ restarted GMRES / block GMRES / CG with one-level Schwarz preconditioners
 (dense or compressed local solves) and the two-level GenEO coarse space,
 for real and complex operators, and compressed factorizations: flat and
 two-level BLR LU and Cholesky, their solves, H-matrix conversion and
-H×H products.  The JAX
+H×H products, and the row-partitioned distributed operator with its
+Schwarz + Krylov solve on partition slices (``parallel/``,
+``solvers/dist_ddm.py``).  The JAX
 package ``htool_tpu`` is the reference; this package never imports it or
 JAX.  Trees and block plans are built on the host (by the C++ planner of
 ``native/``, or in NumPy where it does not build); the device sees flat,

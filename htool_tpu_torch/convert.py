@@ -1,5 +1,6 @@
-"""Carry cluster trees, H-matrices, GenEO coarse spaces and (factorized or
-not) BLR and two-level BLR matrices across from plain NumPy arrays.
+"""Carry cluster trees, H-matrices, distributed H-matrices, GenEO coarse
+spaces and (factorized or not) BLR and two-level BLR matrices across from
+plain NumPy arrays.
 
 Takes NumPy arrays only (no JAX): a caller that holds a JAX object turns
 its fields into arrays with ``np.asarray`` and hands them over, so both
@@ -16,11 +17,12 @@ from .clustering.cluster_tree import ClusterTree
 from .hmatrix.blr import BLRMatrix
 from .hmatrix.blr2 import TwoLevelBLR
 from .hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
+from .parallel.distributed import DistributedHMatrix, _layout_maps, default_mesh
 from .solvers.geneo import GeneoCoarseSpace
 from .utils.device import resolve_device
 
-__all__ = ["tree_from_numpy", "hmatrix_from_numpy", "geneo_from_numpy", "blr_from_numpy",
-           "blr2_from_numpy"]
+__all__ = ["tree_from_numpy", "hmatrix_from_numpy", "distributed_from_numpy",
+           "geneo_from_numpy", "blr_from_numpy", "blr2_from_numpy"]
 
 
 def tree_from_numpy(fields: dict) -> ClusterTree:
@@ -71,6 +73,61 @@ def hmatrix_from_numpy(d: dict, device=None) -> HMatrix:
         symmetry=str(d["symmetry"]),
         UPLO=str(d["UPLO"]),
         t_root_off=int(d["t_root_off"]),
+    )
+
+
+def distributed_from_numpy(d: dict, mesh=None, device=None) -> DistributedHMatrix:
+    """Build a :class:`DistributedHMatrix` on ``mesh`` (default: a mesh of
+    ``n_partitions`` partitions on ``device``, the GPU by default) from a
+    dict with ``shape``, ``n_partitions``, ``perm_t``, ``perm_s``,
+    ``part_offsets``, ``part_sizes``, ``m_loc_max``, ``symmetry``, ``UPLO``
+    and the bucket lists ``dense_buckets`` / ``lr_buckets`` (dicts as for
+    :func:`hmatrix_from_numpy`, every array with a leading partition axis
+    ``[P, nb, ...]``).  With a process group, the mesh's process keeps its
+    own partitions.  Padded blocks (true sizes 0) are pointed at their
+    partition's first row on both sides, as the port's builder pads them:
+    a mirrored term reads or writes the 's' side in the block row's local
+    rows, where offset 0 of another partition would fall outside."""
+    Pn = int(d["n_partitions"])
+    if mesh is None:
+        mesh = default_mesh(Pn, device=device)
+    if mesh.n_partitions != Pn:
+        raise ValueError(f"operator has {Pn} partitions but mesh has {mesh.n_partitions}")
+    dev, lo, hi = mesh.device, mesh.lo, mesh.hi
+    part_offsets = np.asarray(d["part_offsets"], np.int64)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.array(np.asarray(a)[lo:hi], copy=True), dtype=dtype,
+                               device=dev)
+
+    def common(b):
+        t_sz = np.asarray(b["t_sizes"], np.int64)[lo:hi]
+        pad = t_sz == 0
+        offs = []
+        for name in ("t_off", "s_off"):
+            o = np.array(np.asarray(b[name])[lo:hi], np.int64)
+            o[pad] = np.broadcast_to(part_offsets[lo:hi, None], o.shape)[pad]
+            offs.append(torch.as_tensor(o, device=dev))
+        return dict(t_off=offs[0], s_off=offs[1], t_sizes=t_sz,
+                    s_sizes=np.asarray(b["s_sizes"], np.int64)[lo:hi], mirror=bool(b["mirror"]))
+
+    part_sizes = np.asarray(d["part_sizes"], np.int64)
+    return DistributedHMatrix(
+        shape=tuple(int(s) for s in d["shape"]),
+        n_partitions=Pn,
+        dense_buckets=[DenseBucket(data=t(b["data"]), **common(b)) for b in d["dense_buckets"]],
+        lr_buckets=[LowRankBucket(U=t(b["U"]), V=t(b["V"]),
+                                  ranks=np.asarray(b["ranks"], np.int64)[lo:hi], **common(b))
+                    for b in d["lr_buckets"]],
+        perm_t=torch.as_tensor(np.asarray(d["perm_t"], np.int64), device=dev),
+        perm_s=torch.as_tensor(np.asarray(d["perm_s"], np.int64), device=dev),
+        part_offsets=part_offsets,
+        part_sizes=part_sizes,
+        m_loc_max=int(d["m_loc_max"]),
+        mesh=mesh,
+        symmetry=str(d["symmetry"]),
+        UPLO=str(d["UPLO"]),
+        **_layout_maps(part_offsets, part_sizes, int(d["shape"][0]), int(d["m_loc_max"]), dev),
     )
 
 

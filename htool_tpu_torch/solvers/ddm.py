@@ -267,8 +267,10 @@ class DDMSolver:
     preconditioned Krylov solver — the ``DDM`` equivalent
     (``solvers/ddm.hpp:29-382``).
 
-    ``operator`` may be an :class:`~htool_tpu_torch.hmatrix.hmatrix.HMatrix`
-    or any callable on cluster-numbered [N, k] tensors.  The solve runs in
+    ``operator`` may be an :class:`~htool_tpu_torch.hmatrix.hmatrix.HMatrix`,
+    a :class:`~htool_tpu_torch.parallel.distributed.DistributedHMatrix`
+    (applied through its l2l product, the vectors replicated), or any
+    callable on cluster-numbered [N, k] tensors.  The solve runs in
     cluster numbering internally and accepts/returns user numbering, like
     the reference (ddm.hpp:179,226).
     """
@@ -296,10 +298,15 @@ class DDMSolver:
 
         from ..hmatrix.hmatrix import HMatrix
         from ..hmatrix.linalg import matvec as h_matvec
+        from ..parallel.distributed import DistributedHMatrix
 
         if isinstance(operator, HMatrix):
             self._apply = lambda x: h_matvec(operator, x, op="N")
             dtype = operator.dtype
+        elif isinstance(operator, DistributedHMatrix):
+            d = operator
+            self._apply = lambda x: d.to_global_layout(d.matvec_local(d.to_local_layout(x)))
+            dtype = d.dtype
         else:
             self._apply = operator
             dtype = generator.dtype

@@ -8,7 +8,11 @@ right-hand sides, left preconditioning, modified Gram-Schmidt, the same
 Givens convention, the preconditioned stopping test and a true final
 residual; for block GMRES the blocked Gram-Schmidt, the Gram-based QR
 through a shifted Cholesky factor and the least-squares residual per step.
-The ``axis_name`` hook (mesh collectives) is not ported yet.
+The reference's ``axis_name`` hook is ``mesh=``: under a
+:class:`..parallel.collectives.Mesh` the vectors are the per-partition
+slices ``[P_local·m, k]`` of the distributed solver, and every dot product
+sums over each slice and then over the partitions through ``psum`` (the
+MPI_Allreduce of HPDDM's Krylov loop).
 """
 
 from __future__ import annotations
@@ -36,6 +40,26 @@ def _norm_cols(a):
     return torch.sqrt(_vdot_cols(a, a).abs().real)
 
 
+def _dots(mesh):
+    """(vdot, norm, gram) over columns: plain, or, with ``mesh``, over
+    per-partition slices [P_local·m, ·] summed per slice and then over the
+    partitions (``psum``).  ``gram(a, b)`` is aᴴ b."""
+    if mesh is None:
+        return _vdot_cols, _norm_cols, lambda a, b: a.mH @ b
+    from ..parallel.collectives import psum
+
+    def part(a):
+        return a.reshape(mesh.n_local, -1, a.shape[-1])
+
+    def vdot(a, b):
+        return psum(torch.sum(part(a).conj() * part(b), dim=1), mesh)
+
+    def gram(a, b):
+        return psum(part(a).mH @ part(b), mesh)
+
+    return vdot, lambda a: torch.sqrt(vdot(a, a).abs().real), gram
+
+
 def _identity(v):
     return v
 
@@ -57,12 +81,16 @@ def cg(
     x0=None,
     tol: float = 1e-6,
     maxiter: int = 200,
+    mesh=None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradient for SPD/HPD operators.
 
     ``A`` and ``M`` map [n, k] -> [n, k].  Stops when every column satisfies
-    ``||b - A x|| <= tol * ||b||``.
+    ``||b - A x|| <= tol * ||b||``.  With ``mesh``, runs on per-partition
+    vector slices (dots psum over the partitions; padded slice rows must be
+    zero).
     """
+    _vdot_cols, _norm_cols, _ = _dots(mesh)
     b, x, squeeze = _rhs(b, x0)
     M = M or _identity
 
@@ -103,14 +131,17 @@ def gmres(
     tol: float = 1e-6,
     maxiter: int = 200,
     restart: int = 40,
+    mesh=None,
 ) -> KrylovResult:
     """Left-preconditioned restarted GMRES(m) with modified Gram-Schmidt and
     Givens rotations, vectorized over RHS columns.
 
     Iterates on the preconditioned system ``M A x = M b``; the convergence
     test uses the preconditioned residual (HPDDM's default), with the final
-    reported residual recomputed unpreconditioned.
+    reported residual recomputed unpreconditioned.  With ``mesh``, runs on
+    per-partition vector slices.
     """
+    _vdot_cols, _norm_cols, _ = _dots(mesh)
     b, x, squeeze = _rhs(b, x0)
     n, k = b.shape
     M = M or _identity
@@ -210,14 +241,14 @@ def _wide(dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if dtype.is_complex else torch.float64
 
 
-def _block_qr(W):
+def _block_qr(W, gram):
     """Gram-based QR of the tall block W [n, mu]: W = Q R with R the
-    conjugate transpose of the Cholesky factor of Wᴴ W, shifted by 1e-30 so
-    the factor stays invertible when columns have converged.  The Gram
-    matrix is formed in W's dtype and factored in double precision; R comes
-    back in double."""
+    conjugate transpose of the Cholesky factor of Wᴴ W (``gram(W, W)``),
+    shifted by 1e-30 so the factor stays invertible when columns have
+    converged.  The Gram matrix is formed in W's dtype and factored in
+    double precision; R comes back in double."""
     mu = W.shape[1]
-    G = (W.mH @ W).to(_wide(W.dtype))
+    G = gram(W, W).to(_wide(W.dtype))
     L = torch.linalg.cholesky(G + 1e-30 * torch.eye(mu, dtype=G.dtype, device=G.device))
     R = L.mH
     Q = torch.linalg.solve_triangular(R.to(W.dtype), W, upper=True, left=False)  # W R⁻¹
@@ -244,6 +275,7 @@ def block_gmres(
     tol: float = 1e-6,
     maxiter: int = 200,
     restart: int = 20,
+    mesh=None,
 ) -> KrylovResult:
     """Block GMRES(m): all right-hand-side columns share ONE Krylov subspace
     (block Arnoldi with blocked modified Gram-Schmidt + QR), so one operator
@@ -263,7 +295,10 @@ def block_gmres(
     be resolved much below 1e-6 of ‖M b‖, so at ``tol = 1e-6`` the stopping
     test sat on rounding noise and the count of one solve changed from run
     to run on the GPU (its atomics reorder the sums); in double it does not.
+    With ``mesh``, runs on per-partition vector slices (the Gram products
+    psum over the partitions).
     """
+    _vdot_cols, _norm_cols, gram = _dots(mesh)
     b = torch.as_tensor(b)
     if b.ndim == 1:
         raise ValueError("block_gmres needs a 2-D [n, mu] right-hand side")
@@ -286,7 +321,7 @@ def block_gmres(
     while it < maxiter and res_now > tol:
         R0 = M(b - (Ax if Ax is not None else A(x))).to(dtype)
         Ax = None
-        V0, S = _block_qr(R0)
+        V0, S = _block_qr(R0, gram)
         V = torch.zeros((m + 1, n, mu), dtype=dtype, device=dev)
         V[0] = V0
         # block Hessenberg, flattened: block (i, j) at rows i·mu.., cols j·mu..
@@ -299,10 +334,10 @@ def block_gmres(
         while j < m and it < maxiter and bool(torch.any(res > tol)):
             W = M(A(V[j])).to(dtype)
             for i in range(j + 1):  # blocked modified Gram-Schmidt
-                Hij = V[i].mH @ W
+                Hij = gram(V[i], W)
                 W = W - V[i] @ Hij
                 H[i * mu : (i + 1) * mu, j * mu : (j + 1) * mu] += Hij
-            Q, Rj = _block_qr(W)
+            Q, Rj = _block_qr(W, gram)
             H[(j + 1) * mu : (j + 2) * mu, j * mu : (j + 1) * mu] = Rj
             V[j + 1] = Q
             it += 1

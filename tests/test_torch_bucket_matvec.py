@@ -163,23 +163,60 @@ def test_unplanned_matvec_parity(pairs, monkeypatch, spies, sym, op):
     assert _rel(got, (A if op == "N" else A.T) @ x) < EPS
 
 
-@pytest.mark.parametrize("op", ["N", "T"])
-def test_symmetric_block_rows_parity(op):
-    """Symmetric partition block rows (target_partition=p,
-    partition_number_for_symmetry=p) give the JAX block rows' products to
-    1e-12 in f64; stacked ('N') or summed ('T') they give A x."""
-    P = 4
+# (symmetry, UPLO, kernel, op): the real "S"/"L" rows under N and T keep their
+# ids; complex symmetric and hermitian rows, U and L, under N, T and C
+_BLOCK_ROW_CASES = [pytest.param(("S", "L", "real", op), id=op) for op in ("N", "T")] + [
+    pytest.param((sym, uplo, kind, op), id=f"{sym}-{uplo}-{kind}-{op}")
+    for sym, kind in (("S", "complex"), ("H", "hermitian")) for uplo in ("L", "U")
+    for op in ("N", "T", "C")] + [
+    pytest.param(("S", "U", "real", op), id=f"S-U-real-{op}") for op in ("N", "T", "C")]
+
+
+@pytest.fixture(scope="module")
+def block_row_sets():
+    """Per (symmetry, UPLO, kernel): the JAX block rows of P = 4 partitions
+    (target_partition=p, partition_number_for_symmetry=p), built once."""
+    from htool_tpu.testing import laplace_kernel_complex_symmetric, laplace_kernel_hermitian
+
+    kernels = dict(real=laplace_kernel_symmetric, complex=laplace_kernel_complex_symmetric,
+                   hermitian=laplace_kernel_hermitian)
     pts = create_sphere(N)
-    tree = hj.ClusterTreeBuilder(max_leaf_size=32, backend="python").build(pts, n_partitions=P)
-    gen = hj.KernelGenerator(laplace_kernel_symmetric, pts, pts)
+    tree = hj.ClusterTreeBuilder(max_leaf_size=32, backend="python").build(pts, n_partitions=4)
+    cache = {}
+
+    def get(sym, uplo, kind):
+        if (sym, uplo, kind) not in cache:
+            gen = hj.KernelGenerator(kernels[kind], pts, pts)
+            rows = [hj.HMatrixBuilder(epsilon=EPS, eta=10.0, symmetry=sym, UPLO=uplo,
+                                      partition_number_for_symmetry=p).build(
+                        gen, tree, target_partition=p) for p in range(4)]
+            cache[sym, uplo, kind] = (tree, np.asarray(gen.to_dense()), rows)
+        return cache[sym, uplo, kind]
+
+    return get
+
+
+@pytest.mark.parametrize("case", _BLOCK_ROW_CASES)
+def test_symmetric_block_rows_parity(block_row_sets, case):
+    """Symmetric and hermitian partition block rows (target_partition=p,
+    partition_number_for_symmetry=p) give the JAX block rows' products to
+    1e-12 in f64 / complex128; stacked ('N') or summed ('T', 'C') they give
+    op(A) x."""
+    sym, uplo, kind, op = case
+    tree, A, rows = block_row_sets(sym, uplo, kind)
+    P = len(rows)
     perm = np.asarray(tree.permutation)
-    Ac = np.asarray(gen.to_dense())[np.ix_(perm, perm)]
-    xc = np.random.RandomState(8).randn(N, 2)
+    Ac = A[np.ix_(perm, perm)]
+    rng = np.random.RandomState(8)
+    xc = rng.randn(N, 2)
+    if kind != "real":
+        xc = xc + 1j * rng.randn(N, 2)
+    assert np.iscomplexobj(Ac) == (kind != "real")
     parts, offs = [], []
     for p in range(P):
-        Hj = hj.HMatrixBuilder(epsilon=EPS, eta=10.0, symmetry="S", UPLO="L",
-                               partition_number_for_symmetry=p).build(gen, tree, target_partition=p)
+        Hj = rows[p]
         Ht = hmatrix_from_numpy(hmatrix_to_numpy(Hj))
+        assert (Ht.symmetry, Ht.UPLO) == (sym, uplo)
         r0, m = Ht.t_root_off, Ht.shape[0]
         offs.append((r0, m))
         xin = xc if op == "N" else xc[r0 : r0 + m]
@@ -189,12 +226,13 @@ def test_symmetric_block_rows_parity(op):
         parts.append(got)
     assert sum(m for _, m in offs) == N and any(r0 > 0 for r0, _ in offs)
     if op == "N":
-        y = np.zeros((N, 2))
+        y = np.zeros((N, 2), parts[0].dtype)
         for (r0, m), part in zip(offs, parts):
             y[r0 : r0 + m] = part
     else:
         y = sum(parts)
-    assert _rel(y, Ac @ xc) < EPS
+    Aop = Ac if op == "N" else (Ac.T if op == "T" else Ac.conj().T)
+    assert _rel(y, Aop @ xc) < EPS
 
 
 @pytest.mark.parametrize("sym", ["N", "S"])

@@ -49,6 +49,12 @@ SLICE = [
     "htool_tpu_torch.hmatrix.blr",
     "htool_tpu_torch.hmatrix.blr2",
     "htool_tpu_torch.hmatrix.conversion",
+    "htool_tpu_torch.parallel",
+    "htool_tpu_torch.parallel.collectives",
+    "htool_tpu_torch.parallel.distributed",
+    "htool_tpu_torch.parallel.info",
+    "htool_tpu_torch.parallel.multihost",
+    "htool_tpu_torch.solvers.dist_ddm",
 ]
 
 
@@ -87,7 +93,10 @@ def test_slice_lists_every_module_of_the_port():
 def test_no_source_of_the_port_imports_jax():
     """No import statement of the port's package or of chip_smoke.py, at any
     depth (function bodies included), names jax or the JAX package."""
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "torch_multihost_worker.py")]
+    files += [os.path.join(ROOT, "examples", n) for n in os.listdir(os.path.join(ROOT, "examples"))
+              if n.startswith("torch_")]
     for base, _, names in os.walk(os.path.join(ROOT, "htool_tpu_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     assert len(files) > 25
@@ -185,3 +194,20 @@ def test_port_exports_factorization_names():
                  "common_grid_blr"):
         assert hasattr(hj, name) and hasattr(ht, name), name
     assert hasattr(ct, "blr_from_numpy") and hasattr(ct, "blr2_from_numpy")
+
+
+def test_port_exports_distributed_names():
+    """The distributed layer's names, where the JAX package exports them
+    (``htool_tpu/parallel/__init__.py``, ``htool_tpu/solvers/__init__.py``)."""
+    import htool_tpu.parallel as pj
+    import htool_tpu.solvers as sj
+    import htool_tpu_torch.convert as ct
+    import htool_tpu_torch.parallel as pt
+    import htool_tpu_torch.solvers as st
+
+    assert set(pj.__all__) <= set(pt.__all__)
+    for name in pj.__all__:
+        assert hasattr(pt, name), name
+    for name in ("DistributedDDMSolver", "HaloExchange", "build_halo_exchange"):
+        assert name in sj.__all__ and name in st.__all__ and hasattr(st, name), name
+    assert hasattr(ct, "distributed_from_numpy")

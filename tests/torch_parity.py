@@ -27,7 +27,8 @@ def tree_fields(tree) -> dict:
 
 
 def hmatrix_to_numpy(H) -> dict:
-    """The JAX HMatrix's structure and buckets as NumPy arrays."""
+    """The JAX HMatrix's structure and buckets as NumPy arrays (a
+    DistributedHMatrix's too, which has no ``t_root_off``)."""
 
     def common(b):
         return dict(
@@ -38,7 +39,7 @@ def hmatrix_to_numpy(H) -> dict:
 
     return dict(
         shape=tuple(H.shape), symmetry=H.symmetry, UPLO=H.UPLO,
-        t_root_off=int(H.t_root_off),
+        t_root_off=int(getattr(H, "t_root_off", 0)),
         perm_t=np.asarray(H.perm_t), perm_s=np.asarray(H.perm_s),
         dense_buckets=[dict(data=np.asarray(b.data), **common(b)) for b in H.dense_buckets],
         lr_buckets=[
@@ -97,3 +98,13 @@ def blr2_to_numpy(T) -> dict:
     if T.diag is not None:
         d["diag"] = [blr2_to_numpy(p) if hasattr(p, "pU") else blr_to_numpy(p) for p in T.diag]
     return d
+
+
+def distributed_to_numpy(D) -> dict:
+    """A JAX-package DistributedHMatrix as the dict that
+    ``htool_tpu_torch.convert.distributed_from_numpy`` takes: every bucket
+    array keeps its leading partition axis ``[P, nb, ...]``."""
+    d = hmatrix_to_numpy(D)
+    del d["t_root_off"]
+    return dict(d, n_partitions=int(D.n_partitions), m_loc_max=int(D.m_loc_max),
+                part_offsets=np.asarray(D.part_offsets), part_sizes=np.asarray(D.part_sizes))
