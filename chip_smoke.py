@@ -126,15 +126,20 @@ Phases (each prints one JSON line):
     row-partitioned over P = 8 partitions that all live on this card
     (``build_distributed_hmatrix``, and phase 7's symmetric "S"/"L" block rows
     wired by ``build_distributed_from_local_hmatrices``), cold and warm: g2g
-    N and T and l2l N at k = 1 and 8 through the unplanned kernels (the
-    products within 1e-5 of the global H-matrix's on the same tree and within
-    ε of 256 generator rows; every bucket tensor on the card; launches of
-    both unplanned kernels, no plain version), then ``DistributedDDMSolver``
-    (RAS, overlap 0.02, dense local LU) + GMRES(60) to 1e-6 cold and warm,
-    beside the replicated ``DDMSolver`` on the same operator: the same
-    iteration count, true residuals < 10·tol; the halo's colours, ``H_max``
-    and ``n_ext_max``, a profiler window over the warm solve, the peak
-    memory, and the largest tensors still allocated when the phase starts;
+    N and T and l2l N at k = 1 and 8 through the unplanned kernels, each
+    bucket term one launch over the blocks of all 8 partitions (the products
+    within 1e-5 of the global H-matrix's on the same tree and within ε of
+    256 generator rows; every bucket tensor on the card; launches of both
+    unplanned kernels, no plain version; the launches of one product must
+    equal its bucket terms, printed beside the 8 × terms of the
+    per-partition route and the terms that take two stages), then
+    ``DistributedDDMSolver`` (RAS, overlap 0.02, dense local LU) + GMRES(60)
+    to 1e-6 cold and warm, beside the replicated ``DDMSolver`` on the same
+    operator: the same iteration count, true residuals < 10·tol; the halo's
+    colours, ``H_max`` and ``n_ext_max``, a profiler window over the warm
+    solve (busy time, idle share, and the product kernels' and triangular
+    solves' shares of the busy time), the peak memory, and the largest
+    tensors still allocated when the phase starts;
 25. the process-group route — ``initialize_multihost`` over NCCL at world
     size 1 (a file store in a temporary directory), phase 24's operator
     rebuilt on ``global_mesh``: the backend must read ``nccl``, the g2g
@@ -147,7 +152,11 @@ Phases (each prints one JSON line):
     solver (the counts must be equal in float64; in float32 the local LU and
     the explicit inverses differ by rounding and the counts are reported);
     one level with BLR local solves (ε 1e-4, block 256, float32) within 2
-    iterations of dense local solves; every residual < 10·tol.
+    iterations of dense local solves, its solve time beside the dense one;
+    every residual < 10·tol; one application of the stacked BLR local solve
+    (the 8 subdomains' factors padded to one shape, one sweep of batched
+    steps) against each subdomain's ``blr_solve``: ≤ 1e-5 in float32, ≤ 1e-12
+    in float64 on the same float32 factors, both timed.
 
 The script's wall time is a line of its own before the kernels line.
 
@@ -199,10 +208,11 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def profile_window(name, fn) -> dict:
+def profile_window(name, fn, groups=None) -> dict:
     """Run fn under torch.profiler; device busy time is the union of the
     trace's kernel, memcpy and memset intervals, over the window's host
-    wall time."""
+    wall time.  ``groups`` (name -> substrings of kernel names): the summed
+    time of each group's kernels and its share of the busy time."""
     import tempfile
 
     import torch
@@ -233,9 +243,14 @@ def profile_window(name, fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     busy = busy_us / 1e6
     require(len(dev) > 0, f"profile window {name}: no device events in the trace")
-    return dict(window=name, wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
-                n_device_events=len(dev),
-                top_ms=[[n[:72], ms, count] for n, (ms, count) in top])
+    out = dict(window=name, wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
+               n_device_events=len(dev),
+               top_ms=[[n[:72], ms, count] for n, (ms, count) in top])
+    for group, subs in (groups or {}).items():
+        ms = sum(t for n, (t, _) in by_name.items() if any(x in n for x in subs))
+        out[f"{group}_ms"] = ms
+        out[f"{group}_share_of_busy"] = ms / 1e3 / busy
+    return out
 
 
 def blr2_lu_flops(A) -> float:
@@ -978,7 +993,7 @@ def main(argv=None) -> int:
         for bi, bucket in enumerate(h.dense_buckets + h.lr_buckets):
             for in_side, out_side, mode, is_mirror in linalg._bucket_terms(bucket, op, h.symmetry):
                 in_off, out_off, in_root, out_root = linalg._term_offsets(
-                    h, bucket, in_side, out_side, is_mirror)
+                    h.t_root_off, bucket, in_side, out_side, is_mirror)
                 yield bi, bucket, in_len, dict(
                     in_off=in_off, out_off=out_off, trans=mode in ("T", "C"),
                     conj=h.dtype.is_complex and mode in ("C", "conj"), out_len=out_len,
@@ -1995,7 +2010,14 @@ def main(argv=None) -> int:
         global_mesh,
         initialize_multihost,
     )
+    from htool_tpu_torch.hmatrix.blr import blr_solve
     from htool_tpu_torch.solvers import DistributedDDMSolver
+    from htool_tpu_torch.solvers.dist_ddm import (
+        _blr_local_solve,
+        _stack_blr_factors,
+        _subdomain_blr_factors,
+        build_halo_exchange,
+    )
 
     t_phase = time.perf_counter()
     del HS, hs_buckets, pts6_d
@@ -2060,6 +2082,28 @@ def main(argv=None) -> int:
         y_l[perm8] = D24.to_global_layout(D24.matvec_local(xl))
         y24["l2l_N", k] = y_l
     sync()
+    # launches a product: one wrapper call per bucket term over the blocks of
+    # all 8 partitions (the per-partition route made 8 x terms); two-stage
+    # terms are the low-rank ones that lr_split_wanted sends through two
+    # launches
+    per_product24 = {}
+    for name, d in (("plain_rows", D24), ("symmetric_rows", DS24)):
+        for k in (1, 8):
+            xl = d.to_local_layout(x24[k][perm8])
+            for prod, op, fn in (("g2g_N", "N", lambda d=d, k=k: d.matvec(x24[k])),
+                                 ("g2g_T", "T", lambda d=d, k=k: d.matvec(x24[k], op="T")),
+                                 ("l2l_N", "N", lambda d=d, xl=xl: d.matvec_local(xl))):
+                terms = sum(len(linalg._bucket_terms(b, op, d.symmetry))
+                            for b in d.dense_buckets + d.lr_buckets)
+                l0 = dense_bucket_matvec.launches + lr_bucket_matvec.launches
+                s0 = lr_bucket_matvec.cuda_launches - lr_bucket_matvec.launches
+                fn()
+                sync()
+                per_product24[f"{name}/{prod}/k{k}"] = dict(
+                    launches=dense_bucket_matvec.launches + lr_bucket_matvec.launches - l0,
+                    bucket_terms=terms, per_partition_route_launches=P8 * terms,
+                    two_stage_terms=lr_bucket_matvec.cuda_launches - lr_bucket_matvec.launches
+                    - s0)
     t0 = time.perf_counter()
     s24 = DistributedDDMSolver(D24, gen, tree8, schwarz="ras", overlap_radius=0.02,
                                local_solver="dense")
@@ -2083,7 +2127,9 @@ def main(argv=None) -> int:
                                local_solver="dense")
     setup24.append(time.perf_counter() - t0)
     prof24 = profile_window("dist_ras_gmres_warm", lambda: s24.solve(
-        b24, tol=tol, krylov="gmres", restart=60, maxiter=200))
+        b24, tol=tol, krylov="gmres", restart=60, maxiter=200),
+        groups=dict(products=("bucket_stream_kernel", "bucket_matvec_kernel"),
+                    triangular_solves=("trsv", "trsm")))
     t0 = time.perf_counter()
     s24r = DDMSolver(D24, gen, tree8, schwarz="ras", overlap_radius=0.02, local_solver="dense")
     setup24r = time.perf_counter() - t0
@@ -2119,7 +2165,8 @@ def main(argv=None) -> int:
         bytes_per_partition=part_bytes(D24), symmetric_bytes_per_partition=part_bytes(DS24),
         compression_ratio=info24["compression_ratio"],
         n_dense_buckets=len(D24.dense_buckets), n_lr_buckets=len(D24.lr_buckets),
-        product_ms=ms24, rel_vs_global_hmatrix=err_global24, rel_vs_oracle_256_rows=err_oracle24,
+        product_ms=ms24, launches_per_product=per_product24,
+        rel_vs_global_hmatrix=err_global24, rel_vs_oracle_256_rows=err_oracle24,
         halo_colors=s24.halo.n_colors, H_max=s24.halo.H_max, n_ext_max=s24.halo.n_ext_max,
         setup_cold_s=setup24[0], setup_warm_s=setup24[1], solve_cold_s=solves24[0],
         solve_warm_s=solves24[1], iterations=it24["Nb_it"], residual=res24,
@@ -2134,6 +2181,8 @@ def main(argv=None) -> int:
                                                f"{err_oracle24}")
     require(launches24["dense"] > 0 and launches24["lr"] > 0 and launches24["tiled"] == 0
             and plain24 == 0, f"distributed path launches {launches24}, plain calls {plain24}")
+    require(all(v["launches"] == v["bucket_terms"] for v in per_product24.values()),
+            f"distributed products: launches a product against bucket terms {per_product24}")
     require(bool(torch.isfinite(xd24).all()) and res24 < 10 * tol,
             f"distributed RAS: residual {res24:.3e}")
     require(it24["Nb_it"] == itr24["Nb_it"] and res24r < 10 * tol,
@@ -2256,12 +2305,38 @@ def main(argv=None) -> int:
     watch_plain(False)
     plain26 = plain_calls[0]
     collect_launches()
+    # one application of the stacked BLR local solve (all 8 subdomains in one
+    # sweep of batched steps) against each subdomain's blr_solve, on the
+    # float32 factors in float32 and in float64
+    pts_d26 = torch.as_tensor(pts26.astype(np.float32), device=dev)
+    gen26 = ht.KernelGenerator(laplace_kernel_symmetric, pts_d26, pts_d26)
+    halo26 = build_halo_exchange(tree26, ov26)
+    factors26 = _subdomain_blr_factors(gen26, tree26, ov26, range(8), 1e-4, 256)
+    sf26 = _stack_blr_factors(factors26, halo26.n_ext_max, dev)
+    stacked26 = dict(B=sf26.B, nL=sf26.nL, Rh=sf26.Rh,
+                     per_subdomain_nL=[F.nL for F in factors26])
+    for dt, tol26 in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        r26 = torch.as_tensor(rng.randn(8, halo26.n_ext_max, 1), dtype=dt, device=dev)
+
+        def per_subdomain(r26=r26):
+            z = torch.zeros_like(r26)
+            for i, F in enumerate(factors26):
+                n_i = int(halo26.ext_sizes[i])
+                z[i, :n_i] = blr_solve(F, r26[i, :n_i], user_numbering=True)
+            return z
+
+        stacked26[str(dt).removeprefix("torch.")] = dict(
+            rel_vs_blr_solve=rel(_blr_local_solve(sf26, r26), per_subdomain()), tol=tol26,
+            stacked_ms=event_ms(lambda r26=r26: _blr_local_solve(sf26, r26)),
+            per_subdomain_ms=event_ms(per_subdomain))
+    del factors26, sf26, gen26, pts_d26
     launches26 = dict(dense=dense_bucket_matvec.launches, lr=lr_bucket_matvec.launches,
                       by_dtype={f"{w.__name__}[{str(dt).removeprefix('torch.')}]": c
                                 for w in (dense_bucket_matvec, lr_bucket_matvec)
                                 for dt, c in w.launches_by_dtype.items()})
     emit(dict(phase="dist2_n20000", n=n26, partitions=8, epsilon=eps, overlap=0.05, nu=2,
-              tol=tol, cells=cells26, launches=launches26, plain_version_calls=plain26,
+              tol=tol, cells=cells26, stacked_blr_application=stacked26, launches=launches26,
+              plain_version_calls=plain26,
               reference_two_level_iterations=ref_iters_2["ras_geneo_additive_2level_20k"],
               phase_s=time.perf_counter() - t_phase))
     runs32, runs64 = cells26["float32"]["runs"], cells26["float64"]["runs"]
@@ -2278,6 +2353,9 @@ def main(argv=None) -> int:
             f"dist2_n20000: BLR local solves against dense: {runs32}")
     require(launches26["dense"] > 0 and launches26["lr"] > 0 and plain26 == 0,
             f"dist2_n20000: launches {launches26}, plain calls {plain26}")
+    require(all(stacked26[dt]["rel_vs_blr_solve"] <= stacked26[dt]["tol"]
+                for dt in ("float32", "float64")),
+            f"dist2_n20000: stacked BLR solve against blr_solve {stacked26}")
     torch.cuda.empty_cache()
     emit(dict(phase="wall_time", seconds=time.perf_counter() - t_start))
 

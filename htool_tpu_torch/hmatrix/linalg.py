@@ -114,19 +114,42 @@ def _bucket_terms(bucket, op: str, symmetry: str):
     return terms
 
 
-def _term_offsets(h: HMatrix, bucket, in_side: str, out_side: str, is_mirror: bool):
+def _term_offsets(t_root_off, bucket, in_side: str, out_side: str, is_mirror: bool):
     """(in_off, out_off, in_root, out_root) of one bucket term: the bucket's
     offsets on each side, and the root offset to subtract from them.  The
     "row/local" side, localized by ``t_root_off``, is 't' for stored terms
-    and 's' for mirror terms (see :func:`_bucket_terms`)."""
+    and 's' for mirror terms (see :func:`_bucket_terms`).  ``t_root_off`` is
+    an HMatrix's int, or a tensor that broadcasts against the offsets (a
+    root per partition of a distributed operator's ``[P_local, nb]``)."""
     local_side = "s" if is_mirror else "t"
 
     def side(s):
         return (bucket.t_off if s == "t" else bucket.s_off,
-                h.t_root_off if s == local_side else 0)
+                t_root_off if s == local_side else 0)
 
     (in_off, in_root), (out_off, out_root) = side(in_side), side(out_side)
     return in_off, out_off, in_root, out_root
+
+
+def _kernel_operands(h_dtype: torch.dtype, x_pad, y_pad):
+    """(dtype, x, y) as the kernels see them: the product's dtype, or, for a
+    real operator on a complex x, the real parts as 2k columns
+    (``torch.view_as_real``, no copy)."""
+    if x_pad.dtype.is_complex and not h_dtype.is_complex:
+        k = x_pad.shape[1]
+        return (x_pad.real.dtype, torch.view_as_real(x_pad).view(x_pad.shape[0], 2 * k),
+                torch.view_as_real(y_pad).view(y_pad.shape[0], 2 * k))
+    return x_pad.dtype, x_pad, y_pad
+
+
+def _unplanned_term(blocks, in_off, out_off, in_root, out_root, x_k, y_k, kdtype, mode: str):
+    """Add one bucket term into ``y_k`` through the unplanned kernels:
+    ``blocks`` is ``(data,)`` of a dense bucket or ``(U, V)`` of a low-rank
+    one (cast to ``kdtype``), ``mode`` as :func:`_bucket_terms` gives it."""
+    fn = dense_bucket_matvec if len(blocks) == 1 else lr_bucket_matvec
+    fn(*(b.to(kdtype) for b in blocks), in_off, out_off, x_k, mode in ("T", "C"),
+       y_k.shape[0], in_root=in_root, out_root=out_root, out=y_k,
+       conj=kdtype.is_complex and mode in ("C", "conj"))
 
 
 def matvec(h: HMatrix, x, op: str = "N"):
@@ -165,40 +188,26 @@ def matvec(h: HMatrix, x, op: str = "N"):
     pad_in = _pad_in_of(h)
     x_pad = torch.cat([x.to(dtype), torch.zeros((pad_in, k), dtype=dtype, device=x.device)])
     y_pad = torch.zeros((out_len + pad_in, k), dtype=dtype, device=x.device)
-    # what the kernels see: the product's dtype, or its real parts as columns
-    kdtype, x_k, y_k = dtype, x_pad, y_pad
-    if dtype.is_complex and not h.dtype.is_complex:
-        kdtype = x_pad.real.dtype
-        x_k = torch.view_as_real(x_pad).view(x_pad.shape[0], 2 * k)
-        y_k = torch.view_as_real(y_pad).view(y_pad.shape[0], 2 * k)
+    kdtype, x_k, y_k = _kernel_operands(h.dtype, x_pad, y_pad)
 
     for bucket in h.dense_buckets + h.lr_buckets:
-        is_dense = isinstance(bucket, DenseBucket)
+        blocks = (bucket.data,) if isinstance(bucket, DenseBucket) else (bucket.U, bucket.V)
         for in_side, out_side, mode, is_mirror in _bucket_terms(bucket, op, h.symmetry):
             plan = bucket.plan_t if out_side == "t" else bucket.plan_s
-            trans = mode in ("T", "C")  # a side-"s" plan is a transposed one
-            conj = kdtype.is_complex and mode in ("C", "conj")
-            if plan is not None:
-                if plan.out_len != y_pad.shape[0]:
-                    raise ValueError(
-                        f"tiled plan writes {plan.out_len} rows, the product has "
-                        f"{y_pad.shape[0]}: prepare_tiled_matvec again after "
-                        "changing the H-matrix"
-                    )
-                if plan.dtype != kdtype:
-                    plan = plan.astype(kdtype)
-                tiled_bucket_matvec(plan, x_k, out=y_k, conj=conj)
+            if plan is None:
+                _unplanned_term(blocks, *_term_offsets(h.t_root_off, bucket, in_side, out_side,
+                                                       is_mirror), x_k, y_k, kdtype, mode)
                 continue
-
-            in_off, out_off, in_root, out_root = _term_offsets(h, bucket, in_side, out_side,
-                                                               is_mirror)
-            kw = dict(in_root=in_root, out_root=out_root, out=y_k, conj=conj)
-            if is_dense:
-                dense_bucket_matvec(bucket.data.to(kdtype), in_off, out_off, x_k, trans,
-                                    y_k.shape[0], **kw)
-            else:
-                lr_bucket_matvec(bucket.U.to(kdtype), bucket.V.to(kdtype), in_off, out_off,
-                                 x_k, trans, y_k.shape[0], **kw)
+            if plan.out_len != y_pad.shape[0]:
+                raise ValueError(
+                    f"tiled plan writes {plan.out_len} rows, the product has "
+                    f"{y_pad.shape[0]}: prepare_tiled_matvec again after "
+                    "changing the H-matrix"
+                )
+            if plan.dtype != kdtype:
+                plan = plan.astype(kdtype)
+            tiled_bucket_matvec(plan, x_k, out=y_k,
+                                conj=kdtype.is_complex and mode in ("C", "conj"))
 
     matvec.products += 1
     y = y_pad[:out_len]

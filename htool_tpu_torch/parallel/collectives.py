@@ -22,6 +22,9 @@ JAX collective             inside a process            across ranks
                                                        pairs that cross ranks
 =========================  ==========================  ==============================
 
+A product that adds all of a process's partitions into one output has
+already done the in-process sum: :func:`allreduce_sum` and
+:func:`reduce_scatter_sum` are ``psum`` and ``psum_scatter`` without it.
 Complex tensors travel as ``torch.view_as_real`` views.  When a group is
 given, its calls run even at world size 1.
 """
@@ -33,7 +36,8 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "all_gather", "psum", "psum_scatter", "ppermute", "reduce_scatter_route"]
+__all__ = ["Mesh", "all_gather", "psum", "psum_scatter", "ppermute", "reduce_scatter_route",
+           "allreduce_sum", "reduce_scatter_sum"]
 
 
 class Mesh:
@@ -91,7 +95,13 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``[P_local, ...]`` -> the sum over all P partitions, ``[...]``."""
-    s = x.sum(dim=0)
+    return allreduce_sum(x.sum(dim=0), mesh)
+
+
+def allreduce_sum(s: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The cross-rank part of :func:`psum`: ``s`` is already the sum over
+    this process's partitions (a product that added every local partition
+    into one output); returns the sum over all P partitions."""
     if mesh.group is None:
         return s
     sr = _real(s)
@@ -111,9 +121,16 @@ def psum_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     ...]`` holds each partition's full-length contribution; returns the sum
     over all partitions, cut into P tiles of m rows, the local ones:
     ``[P_local, m, ...]``."""
+    return reduce_scatter_sum(x.sum(dim=0), mesh)
+
+
+def reduce_scatter_sum(s: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The cross-rank part of :func:`psum_scatter`: ``s`` ``[P·m, ...]`` is
+    already the sum over this process's partitions; returns the sum over all
+    partitions, cut into P tiles of m rows, the local ones: ``[P_local, m,
+    ...]``."""
     P, Pl = mesh.n_partitions, mesh.n_local
-    m = x.shape[1] // P
-    s = x.sum(dim=0)
+    m = s.shape[0] // P
     if mesh.group is None:
         return s.reshape(P, m, *s.shape[1:])
     sr = _real(s)

@@ -8,16 +8,24 @@ the H-matrix for its target-cluster partition, built with
 Storage is the flat bucket layout with a leading partition axis, ``[P_local,
 nb, ...]``, on the mesh's device (:class:`.collectives.Mesh`: every
 partition of the mesh in one process, or an even share of them per rank of
-a process group).  Products run each local block row through
-:func:`..hmatrix.linalg.matvec` (the unplanned CUDA kernels: a block row
-has ``t_root_off != 0``, which tiled plans refuse) and join the partitions
-with the collectives of :mod:`.collectives`:
+a process group).  A product runs each bucket term once over the blocks of
+all local partitions, the ``[P_local·nb, ...]`` view of the bucket, through
+the unplanned CUDA kernels (block rows have no tiled plans, as in the
+reference), which is what the JAX package's ``shard_map`` body amounts to
+on one device: the local side of every block is offset into the padded
+slices ``[P_local·m_loc_max, k]``, the global side stays global, and for
+'T'/'C' the kernels' atomics add the local partitions into one global
+output.  The collectives of :mod:`.collectives` then join the processes:
 
 - 'N' g2g: local products, then ``all_gather`` of the outputs
   (MPI_Allgatherv, ``add_distributed_operator_vector_product_global_to_global.hpp:76``);
 - 'T'/'C' g2g: local transposed products, then ``psum`` (MPI_Allreduce, :78);
 - l2l: ``all_gather`` of the local slices first (``linalg/utility.hpp:11-28``),
   and for 'T'/'C' a ``psum_scatter`` back to the owners' slices.
+
+The local partitions' sum of 'T'/'C' is already formed in the output, so
+only the cross-rank part of ``psum``/``psum_scatter`` remains
+(:func:`.collectives.allreduce_sum`, :func:`.collectives.reduce_scatter_sum`).
 
 Partition sizes differ in general; slices are padded to the largest
 partition (``m_loc_max``) and compacted with precomputed gather indices.
@@ -37,9 +45,9 @@ from ..clustering.cluster_tree import ClusterTree
 from ..generator import Generator
 from ..hmatrix.assembly import HMatrixBuilder
 from ..hmatrix.hmatrix import DenseBucket, HMatrix, LowRankBucket
-from ..hmatrix.linalg import matvec as _local_matvec
+from ..hmatrix.linalg import _bucket_terms, _kernel_operands, _term_offsets, _unplanned_term
 from ..utils.device import resolve_device
-from .collectives import Mesh, all_gather, psum, psum_scatter
+from .collectives import Mesh, all_gather, allreduce_sum, psum, reduce_scatter_sum
 
 __all__ = [
     "Mesh",
@@ -103,6 +111,8 @@ class DistributedHMatrix:
     # partition row offsets (host), the block rows' t_root_off
     _t_root: Any = None
     _views: list = field(default=None, repr=False, compare=False)
+    # per op: the bucket terms over all local partitions (see _folded_terms)
+    _folded: dict = field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self):
         if self.mesh is None:
@@ -229,19 +239,58 @@ class DistributedHMatrix:
         return A
 
     # ------------------------------------------------------------------
+    def _folded_terms(self, op: str) -> list:
+        """The bucket terms of ``op`` over the blocks of all local partitions
+        at once, planned once per op on the host: ``(blocks, in_off, out_off,
+        mode)`` with ``blocks`` the buckets' ``[P_local·nb, ...]`` views and
+        int64 offsets into the product's vectors (both roots 0).  The local
+        side of partition i's blocks (see ``linalg._bucket_terms``) is offset
+        by ``i·m_loc_max − t_root`` into the padded slices, the global side
+        stays global; padded blocks point at their partition's first row."""
+        terms = self._folded.get(op)
+        if terms is None:
+            Pl, m = self.mesh.n_local, self.m_loc_max
+            root = torch.as_tensor(self._t_root[self.mesh.lo : self.mesh.hi]
+                                   - np.arange(Pl) * m, device=self.device)[:, None]
+            terms = []
+            for b in self.dense_buckets + self.lr_buckets:
+                blocks = tuple(t.reshape(-1, *t.shape[2:])
+                               for t in ((b.data,) if isinstance(b, DenseBucket) else (b.U, b.V)))
+                for in_side, out_side, mode, is_mirror in _bucket_terms(b, op, self.symmetry):
+                    in_off, out_off, in_root, out_root = _term_offsets(root, b, in_side,
+                                                                       out_side, is_mirror)
+                    terms.append((blocks, (in_off - in_root).reshape(-1).contiguous(),
+                                  (out_off - out_root).reshape(-1).contiguous(), mode))
+            self._folded[op] = terms
+        return terms
+
+    def _product(self, x, op: str):
+        """op(this process's block rows) @ x, one kernel launch per bucket
+        term: 'N' takes the global ``[N, k]`` (cluster numbering) and returns
+        the padded slices ``[P_local·m_loc_max, k]``; 'T'/'C' take the slices
+        and return the global ``[N, k]``, summed over the local partitions."""
+        k = x.shape[1]
+        terms = self._folded_terms(op)
+        # pad rows: the widest block, so that every window stays in range
+        pad_in = max((max(t.shape[1:]) for blocks, *_ in terms for t in blocks), default=1)
+        out_len = self.mesh.n_local * self.m_loc_max if op == "N" else self.shape[1]
+        x_pad = torch.cat([x, torch.zeros((pad_in, k), dtype=x.dtype, device=x.device)])
+        y_pad = torch.zeros((out_len + pad_in, k), dtype=x.dtype, device=x.device)
+        kdtype, x_k, y_k = _kernel_operands(self.dtype, x_pad, y_pad)
+        for blocks, in_off, out_off, mode in terms:
+            _unplanned_term(blocks, in_off, out_off, 0, 0, x_k, y_k, kdtype, mode)
+        return y_pad[:out_len]
+
     def _g2g(self, xc, op: str):
         """Cluster-numbering g2g product."""
         k = xc.shape[1]
         xc = xc.to(torch.promote_types(self.dtype, xc.dtype))
-        Pl, m = self.mesh.n_local, self.m_loc_max
         if op == "N":
-            y = torch.stack([_local_matvec(self._local(i), xc, op="N") for i in range(Pl)])
+            y = self._product(xc, "N").reshape(self.mesh.n_local, self.m_loc_max, k)
             return all_gather(y, self.mesh).reshape(-1, k)[self._compact_idx]
-        # 'T' / 'C': local transposed products summed over the partitions
+        # 'T' / 'C': transposed products summed over the partitions
         # (the MPI_Allreduce path, ...g2g.hpp:78)
-        x_loc = self.to_local_layout(xc).reshape(Pl, m, k)
-        y = torch.stack([_local_matvec(self._local(i), x_loc[i], op=op) for i in range(Pl)])
-        return psum(y, self.mesh)
+        return allreduce_sum(self._product(self.to_local_layout(xc), op), self.mesh)
 
     def _l2l(self, x_loc, op: str):
         """Cluster-numbering l2l product: ``all_gather`` of the local slices,
@@ -250,18 +299,12 @@ class DistributedHMatrix:
         ``...local_to_local.hpp:60-87``)."""
         k = x_loc.shape[1]
         x_loc = x_loc.to(torch.promote_types(self.dtype, x_loc.dtype))
-        Pl, m = self.mesh.n_local, self.m_loc_max
         if op == "N":
-            xc = self.to_global_layout(x_loc)
-            return torch.stack([_local_matvec(self._local(i), xc, op="N")
-                                for i in range(Pl)]).reshape(Pl * m, k)
-        x_sl = x_loc.reshape(Pl, m, k)
-        y = []
-        for i in range(Pl):
-            y_glob = _local_matvec(self._local(i), x_sl[i], op=op)  # [N, k]
-            pad = torch.zeros((1, k), dtype=y_glob.dtype, device=y_glob.device)
-            y.append(torch.cat([y_glob, pad])[self._pad_idx])  # [P·m, k]
-        return psum_scatter(torch.stack(y), self.mesh).reshape(Pl * m, k)
+            return self._product(self.to_global_layout(x_loc), "N")
+        y_glob = self._product(x_loc, op)  # [N, k]
+        pad = torch.zeros((1, k), dtype=y_glob.dtype, device=y_glob.device)
+        y = reduce_scatter_sum(torch.cat([y_glob, pad])[self._pad_idx], self.mesh)
+        return y.reshape(self.mesh.n_local * self.m_loc_max, k)
 
 
 # ----------------------------------------------------------------------

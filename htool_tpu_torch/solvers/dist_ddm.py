@@ -17,10 +17,14 @@ axis on the mesh's device and the collectives are those of
   as a static sequence of ``ppermute`` rounds, one per colour of the
   edge-coloured neighbour graph (the ``exchange`` of wrapper_hpddm.hpp:140-149);
 - subdomain solves: the dense mode is one batched LU of the padded
-  extended subdomains ``[P_local, n_ext_max, n_ext_max]`` and one
-  ``lu_solve`` per application (``local_dense_solvers.hpp``); the BLR mode
-  keeps one compressed LU per subdomain (:mod:`..hmatrix.blr`) and runs its
-  block sweeps (``local_hmatrix_solvers.hpp:14-85``);
+  extended subdomains ``[P_local, n_ext_max, n_ext_max]`` and, per
+  application, a row gather and two batched triangular solves
+  (``local_dense_solvers.hpp``); the BLR mode
+  factors one compressed LU per subdomain (:mod:`..hmatrix.blr`), pads them
+  to one shape (:class:`StackedBLRFactors`) and runs each block sweep once
+  for all local subdomains (``local_hmatrix_solvers.hpp:14-85``): nL steps,
+  each batched over the partitions, where the JAX package runs each
+  device's sweep in its ``shard_map`` body;
 - the GenEO coarse correction applies on local slices with one ``psum`` for
   Zᴴ r and a replicated small solve (``coarse_operator_builder.hpp``).
 """
@@ -28,7 +32,7 @@ axis on the mesh's device and the collectives are those of
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -41,7 +45,7 @@ from ..parallel.distributed import DistributedHMatrix
 from .ddm import _sync, build_geometric_overlap
 from .krylov import block_gmres, cg, gmres
 
-__all__ = ["HaloExchange", "DistributedDDMSolver", "build_halo_exchange"]
+__all__ = ["HaloExchange", "DistributedDDMSolver", "StackedBLRFactors", "build_halo_exchange"]
 
 
 # ======================================================================
@@ -187,6 +191,211 @@ def _halo_scatter_add(halo: HaloExchange, mesh, z_ext, z_int, send_idx, recv_pos
 
 
 # ======================================================================
+# stacked BLR local solver (compressed subdomain factorizations)
+# ======================================================================
+
+
+@dataclass
+class StackedBLRFactors:
+    """The local subdomains' factorized BLR matrices padded to one shape, so
+    that one block sweep serves all of them (the LocalHMatrixSolver role,
+    ``local_hmatrix_solvers.hpp:14-85``).
+
+    Every tensor is ``[P_local, ...]`` on the mesh's device; slot tables
+    index each subdomain's OWN slots.  Padding: a subdomain's cells of size
+    b < B get the identity on the rest of their diagonal cell and identity
+    pivots; its padded sweep steps visit a trash row nL (zero, and left
+    zero) through its zero dummy slots, with the identity cell at slot
+    ``ndm − 1`` as their diagonal."""
+
+    B: int  # common cell size
+    nL: int  # common cell count (padded)
+    Rh: int  # common rank slice
+    D: torch.Tensor  # [P, ndm, B, B]
+    U: torch.Tensor  # [P, nlm, B, Rb]
+    V: torch.Tensor  # [P, nlm, Rb, B]
+    piv: torch.Tensor  # [P, nL, B] int32, 1-based row swaps
+    pad_idx: torch.Tensor  # [P, nL, B] int64 ext rows (n_ext_max: a zero row)
+    mask: torch.Tensor  # [P, nL, B] bool
+    cells2ext: torch.Tensor  # [P, n_ext_max] int64 into the flattened cells (pads: trash row)
+    fwd: tuple  # (order, dsl, dj, lsl, lj, dgs), each [P, nL, ...] int64
+    bwd: tuple
+    _cast: dict = field(default_factory=dict, repr=False)
+
+    def cells(self, dtype: torch.dtype) -> tuple:
+        """(D, U, V) in ``dtype``, cast once and kept."""
+        if dtype == self.D.dtype:
+            return self.D, self.U, self.V
+        if dtype not in self._cast:
+            self._cast[dtype] = (self.D.to(dtype), self.U.to(dtype), self.V.to(dtype))
+        return self._cast[dtype]
+
+
+def _stack_blr_factors(factors: list, n_ext_max: int, device=None) -> StackedBLRFactors:
+    """Pad the factorized BLR matrices of the local subdomains (each in its
+    subdomain's ext-row numbering) to one shape on ``device`` (default: the
+    first factor's), with sweep tables from :func:`..hmatrix.blr._sweep_tables`
+    (the JAX package's ``_stack_blr_factors``)."""
+    from ..hmatrix.blr import _sweep_tables
+
+    dev = factors[0].device if device is None else torch.device(device)
+    Pn = len(factors)
+    B = max(F.b for F in factors)
+    nL = max(F.nL for F in factors)
+    Rh = max(F.R_half for F in factors)
+    ndm = max(int(F.D.shape[0]) for F in factors) + 1  # + the identity cell
+    nlm = max(int(F.U.shape[0]) for F in factors)
+    dtype = factors[0].dtype
+    for F in factors[1:]:
+        dtype = torch.promote_types(dtype, F.dtype)
+
+    D = torch.zeros((Pn, ndm, B, B), dtype=dtype, device=dev)
+    U = torch.zeros((Pn, nlm, B, 2 * Rh), dtype=dtype, device=dev)
+    V = torch.zeros((Pn, nlm, 2 * Rh, B), dtype=dtype, device=dev)
+    piv = torch.arange(1, B + 1, dtype=torch.int32, device=dev).repeat(Pn, nL, 1)
+    pad_idx = np.full((Pn, nL, B), n_ext_max, np.int64)
+    mask = np.zeros((Pn, nL, B), bool)
+    cells2ext = np.full((Pn, n_ext_max), nL * B, np.int64)
+    D[:, ndm - 1] = torch.eye(B, dtype=dtype, device=dev)
+    for p, F in enumerate(factors):
+        b, nl_p, nd_p = F.b, F.nL, int(F.D.shape[0])
+        D[p, :nd_p, :b, :b] = F.D.to(dev)
+        if b < B:  # diagonal cells: the identity past b
+            diag = np.unique([int(F.dense_slot[i, i]) for i in range(nl_p)])
+            D[p, diag, b:, b:] = torch.eye(B - b, dtype=dtype, device=dev)
+        U[p, : F.U.shape[0], :b, : F.U.shape[2]] = F.U.to(dev)
+        V[p, : F.V.shape[0], : F.V.shape[1], :b] = F.V.to(dev)
+        if F.piv is not None:
+            piv[p, :nl_p, :b] = F.piv.to(dev)
+        # cells are ranges of the subdomain's cluster ordering; the solve runs
+        # in its ext-row ordering (cluster -> ext row: the permutation)
+        perm = np.asarray(F.permutation, np.int64)
+        for i in range(nl_p):
+            off, sz = int(F.cell_off[i]), int(F.cell_size[i])
+            pad_idx[p, i, :sz] = perm[off : off + sz]
+            mask[p, i, :sz] = True
+            cells2ext[p, perm[off : off + sz]] = i * B + np.arange(sz)
+
+    def stack_tabs(which):
+        tabs = [_sweep_tables(F, which, "N") for F in factors]
+        Wd = max(t[1].shape[1] for t in tabs)
+        Wl = max(t[3].shape[1] for t in tabs)
+        order = np.full((Pn, nL), nL, np.int64)  # padded steps: the trash row
+        dsl = np.zeros((Pn, nL, Wd), np.int64)
+        dj = np.zeros((Pn, nL, Wd), np.int64)
+        lsl = np.zeros((Pn, nL, Wl), np.int64)
+        lj = np.zeros((Pn, nL, Wl), np.int64)
+        dgs = np.full((Pn, nL), ndm - 1, np.int64)  # padded diagonal: the identity
+        for p, ((o, ds, djp, ls, ljp, dg), F) in enumerate(zip(tabs, factors)):
+            nl_p = o.shape[0]
+            order[p, :nl_p] = o
+            dsl[p] = int(F.D.shape[0]) - 1  # the subdomain's zero dummy slots
+            lsl[p] = int(F.U.shape[0]) - 1
+            dsl[p, :nl_p, : ds.shape[1]] = ds
+            dj[p, :nl_p, : djp.shape[1]] = djp
+            lsl[p, :nl_p, : ls.shape[1]] = ls
+            lj[p, :nl_p, : ljp.shape[1]] = ljp
+            dgs[p, :nl_p] = dg
+        return tuple(torch.as_tensor(a, device=dev) for a in (order, dsl, dj, lsl, lj, dgs))
+
+    return StackedBLRFactors(
+        B=B, nL=nL, Rh=Rh, D=D, U=U, V=V, piv=piv,
+        pad_idx=torch.as_tensor(pad_idx, device=dev), mask=torch.as_tensor(mask, device=dev),
+        cells2ext=torch.as_tensor(cells2ext, device=dev),
+        fwd=stack_tabs("L"), bwd=stack_tabs("U"),
+    )
+
+
+def _stacked_sweep(sf: StackedBLRFactors, D, U, V, y, tabs, lu: bool):
+    """One block-triangular sweep of ``y`` [P, nL + 1, B, k] (in place) for
+    all subdomains at once: step t of every subdomain gathers its row's
+    off-diagonal cells and the rows they read, subtracts their products and,
+    with ``lu``, solves the factored diagonal cell (one batched ``lu_solve``
+    over the ``[P, B, B]`` cells); without, the block diagonal is unit."""
+    order, dsl, dj, lsl, lj, dgs = tabs
+    Pl = y.shape[0]
+    p = torch.arange(Pl, device=y.device)
+    pw = p[:, None]
+    Rh = sf.Rh
+    for t in range(sf.nL):
+        i = order[:, t]
+        acc = torch.einsum("pwij,pwjk->pik", D[pw, dsl[:, t]], y[pw, dj[:, t]])
+        Uw = U[pw, lsl[:, t], :, :Rh]  # [P, Wl, B, Rh]
+        Vw = V[pw, lsl[:, t], :Rh, :]  # [P, Wl, Rh, B]
+        acc = acc + torch.einsum("pwir,pwrk->pik", Uw, Vw @ y[pw, lj[:, t]])
+        r = y[p, i] - acc
+        if lu:
+            r = torch.linalg.lu_solve(D[p, dgs[:, t]], sf.piv[p, i.clamp(max=sf.nL - 1)], r)
+        y[p, i] = r
+    return y
+
+
+def _blr_local_solve(sf: StackedBLRFactors, r_ext):
+    """The compressed subdomain solves: r_ext [P_local, n_ext_max, k] ->
+    z_ext, 2·nL batched steps whatever P_local (the JAX package's
+    ``_blr_local_solve`` of each device, for all local subdomains).  Rows
+    past a subdomain's ext size come back zero."""
+    Pl, _, k = r_ext.shape
+    D, U, V = sf.cells(r_ext.dtype)
+    zero = torch.zeros((Pl, 1, k), dtype=r_ext.dtype, device=r_ext.device)
+    y = _rows_of(torch.cat([r_ext, zero], dim=1), sf.pad_idx.reshape(Pl, -1))
+    y = torch.where(sf.mask.reshape(Pl, -1, 1), y, 0).reshape(Pl, sf.nL, sf.B, k)
+    y = torch.cat([y, torch.zeros_like(y[:, :1])], dim=1)  # the trash row
+    y = _stacked_sweep(sf, D, U, V, y, sf.fwd, lu=False)
+    y = _stacked_sweep(sf, D, U, V, y, sf.bwd, lu=True)
+    return _rows_of(y.reshape(Pl, (sf.nL + 1) * sf.B, k), sf.cells2ext)
+
+
+def _pivot_permutation(piv):
+    """LAPACK's 1-based sequential row swaps ``piv`` [P, n] as one row
+    permutation [P, n] (int64, on piv's device): ``b[perm]`` is Pᵀ b for
+    A = P L U."""
+    swaps = piv.cpu().numpy().astype(np.int64) - 1
+    Pn, n = swaps.shape
+    perm = np.tile(np.arange(n), (Pn, 1))
+    rows = np.arange(Pn)
+    for i in range(n):
+        j = swaps[:, i]
+        perm[rows, i], perm[rows, j] = perm[rows, j], perm[rows, i].copy()
+    return torch.as_tensor(perm, device=piv.device)
+
+
+def _lu_apply(lu, perm, r):
+    """A⁻¹ r from A's LU factors ``lu`` [P, n, n] and row permutation
+    ``perm`` [P, n]: the row gather and the two triangular solves of
+    ``torch.linalg.lu_solve``, without the pass over the whole factors that
+    ``lu_solve`` makes on each CUDA call (``tools/torch_dist_probe.py``,
+    phase ``lu_solve``)."""
+    y = torch.gather(r, 1, perm[:, :, None].expand(-1, -1, r.shape[2]))
+    y = torch.linalg.solve_triangular(lu, y, upper=False, unitriangular=True)
+    return torch.linalg.solve_triangular(lu, y, upper=True)
+
+
+def _subdomain_blr_factors(generator, tree, overlap, parts, blr_epsilon, blr_block_size):
+    """One compressed LU per subdomain of ``parts``, each on the subdomain's
+    own cluster tree over its ext (interior + overlap) points, in its ext-row
+    numbering (the replicated solver's ``local_solver="blr"`` build)."""
+    from ..clustering.cluster_tree import ClusterTreeBuilder
+    from ..generator import SubsetGenerator
+    from ..hmatrix.blr import blr_lu, build_blr
+
+    offs, sizes = tree.partition_offsets_sizes()
+    perm = tree.permutation
+    factors = []
+    for p in parts:
+        off, sz = int(offs[p]), int(sizes[p])
+        idx = np.concatenate([np.arange(off, off + sz), np.asarray(overlap[p], np.int64)])
+        sub_user = perm[idx]
+        sub_tree = ClusterTreeBuilder(
+            max_leaf_size=min(blr_block_size, max(32, idx.size // 8))
+        ).build(tree.points[sub_user])
+        B = build_blr(SubsetGenerator(generator, sub_user), sub_tree, epsilon=blr_epsilon,
+                      block_size=blr_block_size)
+        factors.append(blr_lu(B))
+    return factors
+
+
+# ======================================================================
 # solver
 # ======================================================================
 
@@ -311,44 +520,28 @@ class DistributedDDMSolver:
         # zero padded rows/cols, identity on the padded diagonal
         A_loc.masked_fill_(~(vm[:, :, None] & vm[:, None, :]), 0)
         A_loc.diagonal(dim1=1, dim2=2).add_((~vm).to(A_loc.dtype))
-        self._lu, self._piv = torch.linalg.lu_factor(A_loc)
+        lu, piv = torch.linalg.lu_factor(A_loc)
+        self._lu = {lu.dtype: lu}  # the factors by dtype, each cast once
+        self._perm = _pivot_permutation(piv)
 
     def _setup_blr(self, generator, tree, overlap, blr_epsilon, blr_block_size):
-        """One compressed LU per local subdomain, on the subdomain's own
-        cluster tree over its ext points (the replicated solver's
-        ``local_solver="blr"`` build)."""
-        from ..clustering.cluster_tree import ClusterTreeBuilder
-        from ..generator import SubsetGenerator
-        from ..hmatrix.blr import blr_lu, build_blr
-
-        offs, sizes = tree.partition_offsets_sizes()
-        perm = tree.permutation
+        """One compressed LU per local subdomain, stacked for the batched
+        sweeps."""
         mesh = self.dop.mesh
-        self._factors = []
-        for p in range(mesh.lo, mesh.hi):
-            off, sz = int(offs[p]), int(sizes[p])
-            idx = np.concatenate([np.arange(off, off + sz), np.asarray(overlap[p], np.int64)])
-            sub_user = perm[idx]
-            sub_tree = ClusterTreeBuilder(
-                max_leaf_size=min(blr_block_size, max(32, idx.size // 8))
-            ).build(tree.points[sub_user])
-            B = build_blr(SubsetGenerator(generator, sub_user), sub_tree, epsilon=blr_epsilon,
-                          block_size=blr_block_size)
-            self._factors.append(blr_lu(B))
-        self.infos["BLR_cells"] = max(F.nL for F in self._factors)
+        factors = _subdomain_blr_factors(generator, tree, overlap, range(mesh.lo, mesh.hi),
+                                         blr_epsilon, blr_block_size)
+        self._sf = _stack_blr_factors(factors, self.halo.n_ext_max, mesh.device)
+        self.infos["BLR_cells"] = int(self._sf.nL)
 
     # ------------------------------------------------------------------
     def _local_solve(self, r_ext):
         """Subdomain solves: r_ext [P_local, n_ext_max, k] -> z_ext."""
         if self._mode == "dense":
-            return torch.linalg.lu_solve(self._lu.to(r_ext.dtype), self._piv, r_ext)
-        from ..hmatrix.blr import blr_solve
-
-        z_ext = torch.zeros_like(r_ext)
-        for i, F in enumerate(self._factors):
-            n_i = int(self.halo.ext_sizes[self.dop.mesh.lo + i])
-            z_ext[i, :n_i] = blr_solve(F, r_ext[i, :n_i], user_numbering=True).to(r_ext.dtype)
-        return z_ext
+            lu = self._lu.get(r_ext.dtype)
+            if lu is None:
+                lu = self._lu[r_ext.dtype] = next(iter(self._lu.values())).to(r_ext.dtype)
+            return _lu_apply(lu, self._perm, r_ext)
+        return _blr_local_solve(self._sf, r_ext)
 
     def _one_level(self, r_sl):
         """M₁ on padded slices r_sl [P_local, m_loc_max, k]."""
@@ -373,11 +566,12 @@ class DistributedDDMSolver:
             # local store: μ embedded at the partition's slot offset and
             # psum'd (coarse_operator_builder.hpp:18-129 distributed)
             nu_max = cs.nu_max
-            mu = torch.zeros((mesh.n_local, mesh.n_partitions * nu_max, k), dtype=dtype,
+            Pl = mesh.n_local
+            mu = torch.zeros((Pl, mesh.n_partitions, nu_max, k), dtype=dtype,
                              device=r_sl.device)
-            for i in range(mesh.n_local):
-                s0 = (mesh.lo + i) * nu_max
-                mu[i, s0 : s0 + nu_max] = mu_l[i]
+            i = torch.arange(Pl, device=r_sl.device)
+            mu[i, mesh.lo + i] = mu_l
+            mu = mu.reshape(Pl, -1, k)
             e = torch.linalg.lu_solve(cs.E_lu.to(dtype), cs.E_piv, psum(mu, mesh))
             e_loc = e.reshape(mesh.n_partitions, nu_max, k)[mesh.lo : mesh.hi]
         else:
