@@ -156,9 +156,16 @@ Phases (each prints one JSON line):
     every residual < 10·tol; one application of the stacked BLR local solve
     (the 8 subdomains' factors padded to one shape, one sweep of batched
     steps) against each subdomain's ``blr_solve``: ≤ 1e-5 in float32, ≤ 1e-12
-    in float64 on the same float32 factors, both timed.
+    in float64 on the same float32 factors, both timed;
+27. the port's bench rows — ``torch_bench.py --rows
+    kernel_smoke,matvec_n10000,weak_scaling_static`` in a subprocess with a
+    time limit: it must exit 0 with no violation and nothing skipped, and
+    every ``kernel_smoke`` route must have launched its CUDA entry point; its
+    headline line is printed as it gives it.
 
-The script's wall time is a line of its own before the kernels line.
+Phase 24 also prints, on a line of its own, the memory still allocated when
+it starts and the largest tensors.  The script's wall time is a line of
+its own before the kernels line.
 
 The ``kernels`` line before the last lists every entry point (three kernels
 × float32, float64, complex64, complex128, and the planned kernel's split
@@ -183,6 +190,7 @@ import dataclasses
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -789,7 +797,8 @@ def main(argv=None) -> int:
                             rank=None if is_dense else bucket.rank_padded, k=k,
                             route=picked, route_ms=ms, kernel_ms=ms[picked], plain_ms=tp,
                         ))
-            del bk, routes
+            # the loop's names would keep the last float64 copy alive to phase 13
+            del bk, routes, plan, ref_plan
     max_abs_err = stats[("tiled_bucket_matvec", torch.float32)]["max_abs_err"]
     emit(dict(phase="kernel_vs_plain", tolerance_rel=dict(float32=1e-5, float64=1e-12),
               worst_rel={"/".join(map(str, k)): v for k, v in sorted(worst.items())},
@@ -1396,7 +1405,9 @@ def main(argv=None) -> int:
                                 rank=None if is_dense else bucket.rank_padded,
                                 trans=False, conj=False, k=k, route=picked, route_ms=ms,
                                 kernel_ms=ms[picked], plain_ms=tp))
-            del bk, routes
+            # the loop's names would keep the last complex128 copy (2.75 GB of
+            # factors at n = 100,000) alive to the end of the script
+            del bk, routes, plan, ref_plan
     hh_timed = {(bi, kw["trans"], kw["conj"]) for bi, _, _, kw in terms_of(HH, "N")}
     pad_h = HH.shape[0] + linalg._pad_in_of(HH)
     for bi, bucket in enumerate(buckets_h):
@@ -1525,7 +1536,7 @@ def main(argv=None) -> int:
     # ---------------- 16. two-level path: GenEO on the sphere ----------------
     # the JAX bench's two-level row (ddm2_n20000): RAS + GenEO (ν = 2, local
     # store, additive) + GMRES(60), beside the one-level solve
-    del Hc, HH, gen_c, gen_h, buckets_c, buckets_h
+    del Hc, HH, gen_c, gen_h, buckets_c, buckets_h, bucket
     torch.cuda.empty_cache()
     GENEO_INFOS = ("GenEO_coarse_space_size", "GenEO_geev_walltime", "GenEO_ZtAZ_walltime",
                    "GenEO_facto_coarse_operator_walltime")
@@ -2009,6 +2020,7 @@ def main(argv=None) -> int:
         distributed_hmatrix_info,
         global_mesh,
         initialize_multihost,
+        shutdown_multihost,
     )
     from htool_tpu_torch.hmatrix.blr import blr_solve
     from htool_tpu_torch.solvers import DistributedDDMSolver
@@ -2030,6 +2042,8 @@ def main(argv=None) -> int:
         live24 = sorted(((t.numel() * t.element_size(), list(t.shape), str(t.dtype))
                          for t in gc.get_objects() if torch.is_tensor(t) and t.is_cuda),
                         reverse=True)[:6]
+    emit(dict(phase="dist_allocated_at_start", allocated_gb=mem_start24 / 1e9,
+              largest_live_tensors=live24))
     mesh8 = default_mesh(P8, device=dev)
     builds24 = []
     for _ in range(2):  # cold, warm
@@ -2219,7 +2233,7 @@ def main(argv=None) -> int:
                     for op in ("N", "T")}
             del s25, D25
         finally:
-            torch.distributed.destroy_process_group()
+            shutdown_multihost()
     rel25 = {op: rel(y25[op], y24[op, 8]) for op in ("N", "T")}
     x_rel25 = rel(x25, xd24)
     emit(dict(phase="dist_nccl_world1", backend=backend25, partitions=P8, world_size=1,
@@ -2357,6 +2371,44 @@ def main(argv=None) -> int:
                 for dt in ("float32", "float64")),
             f"dist2_n20000: stacked BLR solve against blr_solve {stacked26}")
     torch.cuda.empty_cache()
+
+    # ---------------- 27. the port's bench rows ----------------
+    # three rows of torch_bench.py in a subprocess (each row in a process of
+    # its own; the kernel library is built by now): every kernel_smoke route
+    # must launch its CUDA entry point
+    t_phase = time.perf_counter()
+    rows27 = ["kernel_smoke", "matvec_n10000", "weak_scaling_static"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp27:
+        aux27_path = os.path.join(args.out or tmp27, "torch_bench_aux.json")
+        bench27 = subprocess.Popen([sys.executable, os.path.join(root, "torch_bench.py"),
+                                    "--rows", ",".join(rows27), "--out", aux27_path],
+                                   cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True, start_new_session=True)
+        try:
+            out27, err27 = bench27.communicate(timeout=300)
+        finally:  # its row processes are in its session
+            if bench27.poll() is None:
+                os.killpg(bench27.pid, signal.SIGKILL)
+                bench27.wait()
+        with open(aux27_path) as f:
+            aux27 = json.load(f)
+    heads27 = [json.loads(line) for line in out27.splitlines() if line.startswith("{")]
+    smoke27 = aux27.get("kernel_smoke", {})
+    if heads27:
+        emit(heads27[-1])
+    emit(dict(phase="torch_bench_rows", rows=rows27, returncode=bench27.returncode,
+              violations=aux27.get("violations"), skipped=aux27.get("skipped"),
+              kernel_smoke=smoke27, matvec_n10000=aux27.get("matvec_n10000"),
+              weak_scaling_static=aux27.get("weak_scaling_static"),
+              row_wall_s=aux27.get("row_wall_s"), phase_s=time.perf_counter() - t_phase))
+    require(bench27.returncode == 0 and aux27.get("violations") == []
+            and aux27.get("skipped") == {} and heads27 and heads27[-1]["value"],
+            f"torch_bench rows: rc {bench27.returncode}, violations "
+            f"{aux27.get('violations')}, skipped {aux27.get('skipped')}: {err27[-2000:]}")
+    require(len(smoke27) == 7 and all(r.get("route") == "cuda" and r.get("launches", 0) > 0
+                                      for r in smoke27.values()),
+            f"torch_bench kernel_smoke routes without a CUDA launch: {smoke27}")
     emit(dict(phase="wall_time", seconds=time.perf_counter() - t_start))
 
     # ---------------- the kernels line ----------------

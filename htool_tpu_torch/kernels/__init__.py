@@ -3,9 +3,11 @@
 The sources in ``htool_tpu_torch/csrc/*.cu`` export a plain C interface.
 At first use, :func:`load_library` compiles them with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` process per source, all started together, links
-the objects into one shared library under ``kernels/_build/`` and loads it
-with ``ctypes``.  The library's file name carries a hash of the sources
-and flags, so an edited source is rebuilt and a built one is reused.
+the objects into one shared library under ``kernels/_build/`` (or the
+directory that the environment variable ``HTOOL_TPU_TORCH_KERNEL_DIR``
+names) and loads it with ``ctypes``.  The library's file name carries a
+hash of the sources and flags, so an edited source is rebuilt and a built
+one is reused.
 Nothing is compiled when the package is imported: CPU tensors never reach
 the kernels.
 """
@@ -26,7 +28,8 @@ __all__ = ["load_library", "build_library", "build_info", "check", "entry_point"
            "launch", "SUFFIX_OF"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parent / "_build"
+_BUILD = Path(os.environ.get("HTOOL_TPU_TORCH_KERNEL_DIR")
+              or Path(__file__).resolve().parent / "_build")
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,7 +40,8 @@ _NVCC_FLAGS = [
 SUFFIX_OF = {"float32": "_f32", "float64": "_f64", "complex64": "_c64",
              "complex128": "_c128"}
 
-# filled by the first load: build seconds, library path, ptxas report
+# filled by the first load: seconds, library path, ptxas report, and whether
+# that load compiled the library (``compiled``) or found it built
 build_info: dict = {}
 
 
@@ -82,8 +86,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def build_library() -> tuple:
     """Compile the sources and return ``(path of the shared library, path of
-    the compiler's log)``.  A library built before with the same sources and
-    flags is reused."""
+    the compiler's log, whether it compiled now)``.  A library built before
+    in the same directory with the same sources and flags is reused."""
     srcs = _sources()
     flags = _NVCC_FLAGS
     h = hashlib.sha256(" ".join(flags).encode())
@@ -92,7 +96,8 @@ def build_library() -> tuple:
         h.update(s.read_bytes())
     so = _BUILD / f"libhtool_kernels_{h.hexdigest()[:16]}.so"
     log = so.with_suffix(".log")
-    if not so.exists():
+    compiled = not so.exists()
+    if compiled:
         _BUILD.mkdir(parents=True, exist_ok=True)
         # build in a temporary directory and rename, so a concurrent or
         # interrupted build never leaves a partial library under the final name
@@ -117,19 +122,20 @@ def build_library() -> tuple:
             if not ok:
                 raise RuntimeError(f"nvcc failed:\n{text}")
             os.replace(lib_tmp, so)
-    return so, log
+    return so, log, compiled
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     t0 = time.perf_counter()
-    so, log = build_library()
+    so, log, compiled = build_library()
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     build_info.update(
         seconds=time.perf_counter() - t0,
         library=str(so),
+        compiled=compiled,
         ptxas=log.read_text() if log.exists() else "",
     )
     return lib

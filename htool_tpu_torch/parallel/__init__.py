@@ -6,9 +6,10 @@ from .distributed import (
     default_mesh,
 )
 from .info import distributed_hmatrix_info, print_distributed_hmatrix_information
-from .multihost import global_mesh, initialize_multihost, is_multihost
+from .multihost import global_mesh, initialize_multihost, is_multihost, shutdown_multihost
 
 __all__ = ["Mesh", "DistributedHMatrix", "build_distributed_hmatrix",
            "build_distributed_from_local_hmatrices", "default_mesh", "global_mesh",
-           "initialize_multihost", "is_multihost", "distributed_hmatrix_info",
+           "initialize_multihost", "shutdown_multihost", "is_multihost",
+           "distributed_hmatrix_info",
            "print_distributed_hmatrix_information"]

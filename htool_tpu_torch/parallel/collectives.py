@@ -31,6 +31,7 @@ given, its calls run even at world size 1.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Sequence
 
 import torch
@@ -43,12 +44,18 @@ __all__ = ["Mesh", "all_gather", "psum", "psum_scatter", "ppermute", "reduce_sca
 class Mesh:
     """``n_partitions`` partitions on ``device``, all in this process, or,
     with ``group``, spread evenly over the group's ranks: rank r holds
-    partitions ``[lo, hi) = [r·P/W, (r+1)·P/W)``."""
+    partitions ``[lo, hi) = [r·P/W, (r+1)·P/W)``.
+
+    The mesh holds its group weakly: ``torch.distributed`` owns the group
+    until ``destroy_process_group``, which must then free it and stop its
+    threads at once, not whenever the last operator or solver built on the
+    mesh is collected (for module globals, during interpreter shutdown).  A
+    mesh whose group was destroyed raises on use."""
 
     def __init__(self, n_partitions: int, device, group=None):
         self.n_partitions = int(n_partitions)
         self.device = torch.device(device)
-        self.group = group
+        self._group = None if group is None else weakref.ref(group)
         self.world_size = 1 if group is None else dist.get_world_size(group)
         self.rank = 0 if group is None else dist.get_rank(group)
         if self.n_partitions < 1 or self.n_partitions % self.world_size:
@@ -58,6 +65,16 @@ class Mesh:
         self.n_local = self.n_partitions // self.world_size
         self.lo = self.rank * self.n_local
         self.hi = self.lo + self.n_local
+
+    @property
+    def group(self):
+        """The process group, or None for a mesh inside one process."""
+        if self._group is None:
+            return None
+        group = self._group()
+        if group is None:
+            raise RuntimeError("the mesh's process group was destroyed")
+        return group
 
     @property
     def backend(self) -> Optional[str]:

@@ -8,6 +8,7 @@ partitions of a :class:`.collectives.Mesh` evenly over its ranks.  The
 operator, its products and the distributed solver then run unchanged: each
 collective completes across the group (:mod:`.collectives`).  The backend
 follows the device: NCCL for CUDA, gloo for the CPU, unless one is named.
+:func:`shutdown_multihost` ends the group (the MPI_Finalize analog).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch.distributed as dist
 from .collectives import Mesh
 from .distributed import _mesh_device
 
-__all__ = ["initialize_multihost", "global_mesh", "is_multihost"]
+__all__ = ["initialize_multihost", "shutdown_multihost", "global_mesh", "is_multihost"]
 
 
 def initialize_multihost(
@@ -55,6 +56,18 @@ def initialize_multihost(
     dist.init_process_group(backend=backend, init_method=coordinator_address,
                             world_size=num_processes if num_processes is not None else -1,
                             rank=process_id if process_id is not None else -1)
+
+
+def shutdown_multihost() -> None:
+    """End the default process group that :func:`initialize_multihost`
+    started: a barrier, so that no rank tears its connections down while a
+    peer still sends to it, then ``destroy_process_group``, which frees the
+    group and stops its threads (meshes hold their group weakly).  Without a
+    group this does nothing."""
+    if not dist.is_initialized():
+        return
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def is_multihost() -> bool:

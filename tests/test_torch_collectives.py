@@ -116,7 +116,16 @@ def test_mesh_rules(gloo_mesh, monkeypatch):
     # rank 1 of a group of 3 holds partitions [2, 4) of 6; 4 do not split over 3
     monkeypatch.setattr(C.dist, "get_world_size", lambda group: 3)
     monkeypatch.setattr(C.dist, "get_rank", lambda group: 1)
-    m = Mesh(6, "cpu", group="a group of 3")
+    group_of_3 = _StandInGroup()
+    m = Mesh(6, "cpu", group=group_of_3)
     assert (m.n_local, m.lo, m.hi, m.owner(5)) == (2, 2, 4, 2)
     with pytest.raises(ValueError, match="multiple of the world size"):
-        Mesh(4, "cpu", group="a group of 3")
+        Mesh(4, "cpu", group=group_of_3)
+    # the mesh holds its group weakly: once the group is gone, it raises
+    del group_of_3
+    with pytest.raises(RuntimeError, match="process group was destroyed"):
+        m.group
+
+
+class _StandInGroup:
+    """A process group for Mesh's bookkeeping, which only passes it on."""

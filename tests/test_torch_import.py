@@ -91,9 +91,10 @@ def test_slice_lists_every_module_of_the_port():
 
 
 def test_no_source_of_the_port_imports_jax():
-    """No import statement of the port's package or of chip_smoke.py, at any
-    depth (function bodies included), names jax or the JAX package."""
-    files = [os.path.join(ROOT, "chip_smoke.py"),
+    """No import statement of the port's package, of chip_smoke.py or of
+    torch_bench.py, at any depth (function bodies included), names jax or
+    the JAX package."""
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "torch_bench.py"),
              os.path.join(ROOT, "tests", "torch_multihost_worker.py")]
     files += [os.path.join(ROOT, "examples", n) for n in os.listdir(os.path.join(ROOT, "examples"))
               if n.startswith("torch_")]

@@ -7,8 +7,12 @@ file store in ``tmp_path``.  The g2g N and T products, the l2l products and
 one RAS + GMRES solve must equal this process's single-process run of the
 same operator (rel 1e-12, the same iteration count), and a complex
 ``ppermute`` and a ``psum_scatter`` across the ranks must deliver what the
-single-process collectives do.  The workers are killed when they overrun
-their time limit, so a hang fails in bounded time."""
+single-process collectives do.  ``shutdown_multihost`` must free each
+worker's group and stop its threads while the worker still holds the mesh
+(a group left alive past ``destroy_process_group`` is torn down at
+interpreter exit, where gloo's threads once aborted a worker).  The workers
+are killed when they overrun their time limit, so a hang fails in bounded
+time."""
 
 import os
 import subprocess
@@ -55,6 +59,9 @@ def test_two_process_gloo_matches_one_process(tmp_path):
     res = [dict(np.load(tmp_path / f"worker{r}.npz")) for r in range(WORLD)]
     assert [int(r["lo"]) for r in res] == [0, NP // WORLD]
     assert all(int(r["world"]) == WORLD for r in res)
+    for r in res:
+        assert bool(r["group_freed"])
+        assert int(r["threads_after_shutdown"]) < int(r["threads_before_shutdown"])
 
     # the same operator, solve and collectives in this one process
     n = 480

@@ -2,13 +2,17 @@
 processes wired by ``torch.distributed`` (gloo, a file store) that each hold
 an even share of P partitions on the CPU.  It builds the distributed
 operator on the global mesh, applies it (g2g N and T) and runs one RAS +
-GMRES solve, and writes its results as NumPy arrays.  It imports no JAX.
+GMRES solve, ends the group with ``shutdown_multihost`` while the mesh, the
+operator and the solver are still alive, and writes its results as NumPy
+arrays, with whether the group was freed and the process's thread count
+before and after.  It imports no JAX.
 
 Usage: python torch_multihost_worker.py <rank> <world_size> <store_file> <n_partitions> <out.npz>
 """
 
 import os
 import sys
+import weakref
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -21,6 +25,7 @@ from htool_tpu_torch.parallel import (  # noqa: E402
     global_mesh,
     initialize_multihost,
     is_multihost,
+    shutdown_multihost,
 )
 from htool_tpu_torch.parallel.collectives import ppermute, psum_scatter  # noqa: E402
 from htool_tpu_torch.solvers import DistributedDDMSolver  # noqa: E402
@@ -55,6 +60,12 @@ s = DistributedDDMSolver(D, gen, tree, schwarz="ras", overlap_radius=0.3)
 xs, infos = s.solve(res["y_N"][:, 0], tol=1e-8, krylov="gmres")
 res.update(x_solve=xs.numpy(), iterations=np.array(infos["Nb_it"]),
            lo=np.array(mesh.lo), world=np.array(torch.distributed.get_world_size()))
+# the group must be freed, and its threads stopped, by the shutdown itself,
+# not at interpreter exit when the globals holding the mesh are collected
+group = weakref.ref(mesh.group)
+res["threads_before_shutdown"] = np.array(len(os.listdir("/proc/self/task")))
+shutdown_multihost()
+res["threads_after_shutdown"] = np.array(len(os.listdir("/proc/self/task")))
+res["group_freed"] = np.array(group() is None)
 np.savez(out_path, **res)
-torch.distributed.destroy_process_group()
 print("WORKER_OK", rank, flush=True)
