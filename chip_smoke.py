@@ -161,7 +161,17 @@ Phases (each prints one JSON line):
     kernel_smoke,matvec_n10000,weak_scaling_static`` in a subprocess with a
     time limit: it must exit 0 with no violation and nothing skipped, and
     every ``kernel_smoke`` route must have launched its CUDA entry point; its
-    headline line is printed as it gives it.
+    headline line is printed as it gives it;
+28. several processes — ``torch_multichip.py`` on phase 24's configuration
+    (P = 8) twice: 2 gloo ranks sharing this card, then one NCCL rank a card
+    on ``min(4, device_count)`` cards; each rank builds and holds only its
+    partitions.  The gathered g2g products at k = 8 must be within 1e-6 of
+    phase 24's operator on the same x, every rank must take the iteration
+    count of phase 24's solver on the same right-hand side with a residual
+    < 10·tol, launch both unplanned kernels and call no plain version, hold
+    its tensors on its card (``cuda:{rank}`` under NCCL, shared under gloo),
+    and the NCCL ranks' cards must be distinct; each rank's card, peak
+    memory, product times and solve times are printed.
 
 Phase 24 also prints, on a line of its own, the memory still allocated when
 it starts and the largest tensors.  The script's wall time is a line of
@@ -2249,7 +2259,16 @@ def main(argv=None) -> int:
             f"residual {res25:.3e}")
     require(launches25["dense"] > 0 and launches25["lr"] > 0 and plain25 == 0,
             f"NCCL route launches {launches25}, plain calls {plain25}")
-    del s24, D24, DS24, y24, ys24, ref24
+    # phase 28's reference: torch_multichip.py's x and right-hand side (made
+    # from the seed as it makes them) through phase 24's operator and solver
+    x28 = torch.as_tensor(np.random.RandomState(args.seed).randn(n, 8).astype(np.float32),
+                          device=dev)
+    b28 = torch.as_tensor(np.random.RandomState(args.seed + 1).randn(n).astype(np.float32),
+                          device=dev)
+    xs28, it28 = s24.solve(b28, tol=tol, krylov="gmres", restart=60, maxiter=200)
+    ref28 = dict(y_N=D24.matvec(x28).cpu(), y_T=D24.matvec(x28, op="T").cpu(), x=xs28.cpu(),
+                 iterations=it28["Nb_it"])
+    del s24, D24, DS24, y24, ys24, ref24, x28, b28, xs28
     torch.cuda.empty_cache()
 
     # ---------------- 26. cell 6 distributed: two levels and BLR local solves ----------------
@@ -2409,6 +2428,79 @@ def main(argv=None) -> int:
     require(len(smoke27) == 7 and all(r.get("route") == "cuda" and r.get("launches", 0) > 0
                                       for r in smoke27.values()),
             f"torch_bench kernel_smoke routes without a CUDA launch: {smoke27}")
+
+    # ---------------- 28. several processes: torch_multichip.py ----------------
+    # phase 24's configuration (P = 8) over W ranks, each building and holding
+    # only its partitions: two gloo ranks sharing this card, then one NCCL
+    # rank a card on as many cards as there are (at most 4)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    runs28 = []
+    for backend, world in (("gloo", 2), ("nccl", min(4, n_cards))):
+        with tempfile.TemporaryDirectory() as tmp28:
+            t0 = time.perf_counter()
+            mc = subprocess.Popen(
+                [sys.executable, os.path.join(root, "torch_multichip.py"), "--world", str(world),
+                 "--backend", backend, "--partitions", str(P8), "--n", str(n), "--seed",
+                 str(args.seed), "--timeout", "400", "--out", tmp28],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True)
+            try:
+                out28, err28 = mc.communicate(timeout=480)
+            finally:  # its ranks are in its process group
+                if mc.poll() is None:
+                    os.killpg(mc.pid, signal.SIGKILL)
+                    mc.wait()
+            require(mc.returncode == 0, f"torch_multichip.py --world {world} --backend "
+                                        f"{backend}: exit {mc.returncode}: {err28[-3000:]}")
+            with open(os.path.join(tmp28, "summary.json")) as f:
+                summary28 = json.load(f)
+            got28 = np.load(os.path.join(tmp28, "gathered.npz"))
+            got28 = {key: torch.as_tensor(got28[key]) for key in ("y_N", "y_T", "x")}
+        ranks28 = summary28.pop("ranks")
+        if args.out:
+            with open(os.path.join(args.out, f"torch_multichip_{backend}.json"), "w") as f:
+                json.dump(dict(summary28, ranks=ranks28), f)
+        run = dict(
+            world=world, backend=summary28["backend"], partitions=summary28["partitions"],
+            wall_s=time.perf_counter() - t0,
+            rel_vs_phase24={key: rel(got28[key], ref28[key]) for key in ("y_N", "y_T")},
+            solution_rel_vs_phase24=rel(got28["x"], ref28["x"]),
+            iterations=summary28["iterations"], phase24_iterations=ref28["iterations"],
+            residual_max=summary28["residual_max"],
+            distinct_cards=summary28["distinct_cards"],
+            ranks=[dict(rank=r["rank"], card=r["card"], local_partitions=r["local_partitions"],
+                        peak_memory_bytes=r["peak_memory_bytes"],
+                        product_ms_k8=r["product_ms_k8"], build_s=r["build_s"],
+                        setup_s=r["setup_s"], solve_cold_s=r["solve_cold_s"],
+                        solve_warm_s=r["solve_warm_s"], lu_shape=r["lu_shape"],
+                        launches=r["launches"], plain_version_calls=r["plain_version_calls"],
+                        tensors_on_card=r["tensors_on_card"], rank_s=r["rank_s"])
+                   for r in ranks28])
+        runs28.append(run)
+        what = f"torch_multichip.py --world {world} --backend {backend}"
+        require(run["backend"] == backend and run["partitions"] == P8 and len(ranks28) == world,
+                f"{what}: {summary28}")
+        require(max(run["rel_vs_phase24"].values()) <= 1e-6,
+                f"{what}: products against phase 24's {run['rel_vs_phase24']}")
+        require(run["iterations"] == [ref28["iterations"]] * world
+                and run["residual_max"] < 10 * tol,
+                f"{what}: iterations {run['iterations']} (phase 24: {ref28['iterations']}), "
+                f"residual {run['residual_max']:.3e}")
+        for r in ranks28:
+            want_card = f"cuda:{r['rank'] if backend == 'nccl' else r['rank'] % n_cards}"
+            require(r["card"]["device"] == want_card and r["tensors_on_card"],
+                    f"{what}: rank {r['rank']} on {r['card']}, expected {want_card}")
+            require(all(v > 0 for v in r["launches"].values())
+                    and not r["plain_version_calls"],
+                    f"{what}: rank {r['rank']} launches {r['launches']}, plain calls "
+                    f"{r['plain_version_calls']}")
+        require(backend != "nccl" or world < 2 or run["distinct_cards"],
+                f"{what}: ranks share a card: {[r['card'] for r in ranks28]}")
+    emit(dict(phase="dist_multiprocess", n=n, partitions=P8, nvidia_smi=smi, cards=n_cards,
+              runs=runs28, phase_s=time.perf_counter() - t_phase))
     emit(dict(phase="wall_time", seconds=time.perf_counter() - t_start))
 
     # ---------------- the kernels line ----------------

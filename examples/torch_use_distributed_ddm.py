@@ -3,13 +3,15 @@ in the JAX package): the operator row-partitioned over P partitions, the
 Krylov vectors held as per-partition slices, the Schwarz preconditioner's
 halo exchange and subdomain solves per partition, dot products summed over
 the partitions; one-level RAS, a GenEO two-level correction, and block GMRES
-on several right-hand sides.  The P partitions live on one device of this
-process.
+on several right-hand sides.  Run alone, the P partitions live on one device
+of this process; under a launcher, each rank holds P / W of them on its own
+card (gloo on the CPU).
 
-Run on the GPU (the default) or on the CPU:
+Run on the GPU (the default) or on the CPU, in one process or one a card:
 
     python examples/torch_use_distributed_ddm.py
     python examples/torch_use_distributed_ddm.py --device cpu
+    torchrun --nproc-per-node=4 examples/torch_use_distributed_ddm.py
 """
 
 import argparse
@@ -19,7 +21,14 @@ import torch
 
 import htool_tpu_torch as ht
 from htool_tpu_torch.hmatrix.linalg import matvec
-from htool_tpu_torch.parallel import build_distributed_hmatrix, default_mesh
+from htool_tpu_torch.parallel import (
+    build_distributed_hmatrix,
+    default_mesh,
+    global_mesh,
+    initialize_multihost,
+    is_multihost,
+    shutdown_multihost,
+)
 from htool_tpu_torch.solvers import (
     DistributedDDMSolver,
     build_geneo_coarse_space,
@@ -33,13 +42,15 @@ ap.add_argument("--n", type=int, default=4000)
 ap.add_argument("--partitions", type=int, default=8)
 args = ap.parse_args()
 ht.set_default_device(args.device)
+initialize_multihost(device=args.device)  # under a launcher: one rank a card; else nothing
+mesh = global_mesh if is_multihost() else default_mesh
 
 n, P = args.n, args.partitions
 print(f"partitions: {P}, points: {n}")
 pts = create_sphere(n)
 gen = ht.KernelGenerator(laplace_kernel_symmetric, pts, pts, dtype=torch.float64)
 tree = ht.build_cluster_tree(pts, max_leaf_size=64, n_partitions=P)
-D = build_distributed_hmatrix(gen, tree, default_mesh(P), epsilon=1e-6, eta=10.0)
+D = build_distributed_hmatrix(gen, tree, mesh(P), epsilon=1e-6, eta=10.0)
 
 overlap = build_geometric_overlap(tree, 0.15)
 b = np.random.default_rng(0).standard_normal(n)
@@ -62,3 +73,4 @@ print("two-level GenEO:", {k: infos2[k] for k in ("Nb_it", "Residual", "Coarse_s
 B = np.random.default_rng(1).standard_normal((n, 4))
 x3, infos3 = solver.solve(B, tol=1e-6, krylov="block_gmres")
 print("block GMRES (4 rhs):", {k: infos3[k] for k in ("Nb_it", "Residual")})
+shutdown_multihost()

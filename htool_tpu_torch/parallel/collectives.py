@@ -27,6 +27,13 @@ already done the in-process sum: :func:`allreduce_sum` and
 :func:`reduce_scatter_sum` are ``psum`` and ``psum_scatter`` without it.
 Complex tensors travel as ``torch.view_as_real`` views.  When a group is
 given, its calls run even at world size 1.
+
+Backends.  NCCL moves CUDA tensors, one rank a card.  gloo moves host
+memory (its ``send``/``recv`` take no CUDA tensor), and it is the only way
+to put several ranks on one card: under gloo, the buffer a collective moves
+for a CUDA tensor is a host copy, and the result goes back to the tensor's
+card (:func:`_wire`); the computation stays on the card, and CPU tensors
+move as they are.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ class Mesh:
         self.n_local = self.n_partitions // self.world_size
         self.lo = self.rank * self.n_local
         self.hi = self.lo + self.n_local
+        self._p2p_ready = False  # see ppermute
 
     @property
     def group(self):
@@ -99,15 +107,23 @@ def _like(r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.view_as_complex(r) if x.is_complex() else r
 
 
+def _wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The buffer that the mesh's group moves for ``t``: ``t`` itself, or,
+    under gloo, its host copy (``t`` itself when it lies on the CPU).  The
+    caller brings the result back with ``.to(t.device)``, which copies only
+    a staged buffer."""
+    return t.cpu() if mesh.backend == "gloo" else t
+
+
 def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``[P_local, ...]`` per-partition slices -> ``[P, ...]``, all of them."""
     if mesh.group is None:
         return x
-    xr = _real(x)
+    xr = _wire(_real(x), mesh)
     out = torch.empty((mesh.world_size * xr.shape[0], *xr.shape[1:]), dtype=xr.dtype,
                       device=xr.device)
     dist.all_gather_into_tensor(out, xr, group=mesh.group)
-    return _like(out, x)
+    return _like(out.to(x.device), x)
 
 
 def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -121,9 +137,9 @@ def allreduce_sum(s: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     into one output); returns the sum over all P partitions."""
     if mesh.group is None:
         return s
-    sr = _real(s)
+    sr = _wire(_real(s), mesh)
     dist.all_reduce(sr, group=mesh.group)
-    return _like(sr, s)
+    return _like(sr.to(s.device), s)
 
 
 def reduce_scatter_route(backend: Optional[str]) -> str:
@@ -150,14 +166,14 @@ def reduce_scatter_sum(s: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     m = s.shape[0] // P
     if mesh.group is None:
         return s.reshape(P, m, *s.shape[1:])
-    sr = _real(s)
+    sr = _wire(_real(s), mesh)
     if reduce_scatter_route(mesh.backend) == "reduce_scatter_tensor":
         out = torch.empty((Pl * m, *sr.shape[1:]), dtype=sr.dtype, device=sr.device)
         dist.reduce_scatter_tensor(out, sr, group=mesh.group)
     else:
         dist.all_reduce(sr, group=mesh.group)
         out = sr[mesh.lo * m : mesh.hi * m]
-    return _like(out.contiguous(), s).reshape(Pl, m, *s.shape[1:])
+    return _like(out.contiguous().to(s.device), s).reshape(Pl, m, *s.shape[1:])
 
 
 def ppermute(x: torch.Tensor, pairs: Sequence[tuple[int, int]], mesh: Mesh) -> torch.Tensor:
@@ -165,7 +181,8 @@ def ppermute(x: torch.Tensor, pairs: Sequence[tuple[int, int]], mesh: Mesh) -> t
     partition ``src``'s slice for every ``(src, dst)`` of ``pairs`` (global
     partition numbers, each source and each destination at most once);
     partitions that receive nothing get zeros, as ``jax.lax.ppermute``
-    gives them."""
+    gives them.  Every rank of the mesh calls it with the same ``pairs``,
+    also a rank with no pair that crosses ranks."""
     lo, hi, Pl = mesh.lo, mesh.hi, mesh.n_local
     src_of = torch.full((Pl,), Pl, dtype=torch.int64)  # Pl: the zero row
     sends, recvs = [], []
@@ -179,12 +196,22 @@ def ppermute(x: torch.Tensor, pairs: Sequence[tuple[int, int]], mesh: Mesh) -> t
             recvs.append((dst - lo, mesh.owner(src)))
     xz = torch.cat([x, torch.zeros_like(x[:1])], dim=0)
     out = xz.index_select(0, src_of.to(x.device))
+    if mesh.group is not None and not mesh._p2p_ready:
+        # NCCL runs a batch of P2P calls on the group's communicator, and when
+        # that batch is the group's first call, every rank must take part (the
+        # communicator is created collectively).  A rank without a crossing
+        # pair makes no P2P call, so before the first batch every rank runs
+        # one all_reduce over the group: the communicator then exists, and a
+        # batch of a subset of the ranks is defined.
+        if mesh.backend == "nccl":
+            dist.all_reduce(torch.zeros(1, device=x.device), group=mesh.group)
+        mesh._p2p_ready = True
     if not sends and not recvs:
         return out
     # pairs that cross ranks, posted in the order of ``pairs`` on both sides
     # (messages between two ranks match in order)
     ops, bufs = [], []
-    xr = _real(x)
+    xr = _wire(_real(x), mesh)
     for i, r in sends:
         ops.append(dist.P2POp(dist.isend, xr[i].contiguous(),
                               dist.get_global_rank(mesh.group, r), mesh.group))
@@ -196,5 +223,5 @@ def ppermute(x: torch.Tensor, pairs: Sequence[tuple[int, int]], mesh: Mesh) -> t
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     for i, buf in bufs:
-        out[i] = _like(buf, x)
+        out[i] = _like(buf.to(x.device), x)
     return out

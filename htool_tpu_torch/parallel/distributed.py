@@ -35,6 +35,7 @@ sides, so every window of every term stays inside its vector.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -68,13 +69,22 @@ def _mesh_device(device) -> torch.device:
 
 
 def default_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
-    """A mesh of ``n_devices`` partitions on one device of this process
-    (default: the GPU, see :mod:`..utils.device`).  ``None`` means one
-    partition per visible GPU (at least one), as the JAX package's default
-    mesh takes every device."""
+    """A mesh of ``n_devices`` partitions, all on ONE device of this process
+    (default: the current GPU, see :mod:`..utils.device`), with no process
+    group.  ``None`` means as many partitions as there are visible GPUs (at
+    least one), the partition count of the JAX package's default mesh; they
+    still share one card, and the call warns when other cards stay idle.
+    Several cards take one process each: start one rank a card (``torchrun
+    --nproc-per-node``), call ``initialize_multihost()`` and use
+    ``global_mesh``."""
     dev = _mesh_device(device)
     if n_devices is None:
         n_devices = max(1, torch.cuda.device_count()) if dev.type == "cuda" else 1
+        if n_devices > 1:
+            warnings.warn(
+                f"default_mesh puts all {n_devices} partitions on {dev}; the other "
+                f"{n_devices - 1} card(s) stay idle.  Start one process a card and use "
+                "global_mesh to spread the partitions over them.", stacklevel=2)
     return Mesh(n_devices, dev)
 
 

@@ -20,7 +20,7 @@ __all__ = ["device_trace", "Timer", "annotate"]
 
 
 @contextlib.contextmanager
-def device_trace(log_dir: str):
+def device_trace(log_dir: str, host_profile: bool = False):
     """Trace the enclosed block into ``log_dir/trace.json`` (Chrome trace
     format, readable by ``chrome://tracing`` and Perfetto)::
 
@@ -28,13 +28,17 @@ def device_trace(log_dir: str):
             y = matvec(H, x)
 
     CUDA activities are recorded where a GPU is available; the trace is
-    written after the device has finished the block's work.  Yields the
-    ``torch.profiler.profile`` object (``key_averages()`` and the like)."""
+    written after the device has finished the block's work.  With
+    ``host_profile``, each host event also records the Python stack that
+    issued it (``with_stack``: a ``stack`` field in the trace,
+    ``key_averages(group_by_stack_n=...)``), at the cost of slower host
+    code while tracing.  Yields the ``torch.profiler.profile`` object
+    (``key_averages()`` and the like)."""
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, with_stack=host_profile) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()

@@ -1,5 +1,6 @@
 """The port's profiling hooks on the CPU: Timer's info entries, annotate's
-named regions and device_trace's Chrome trace."""
+named regions and device_trace's Chrome trace, with and without the host's
+Python calls (``host_profile``)."""
 
 import json
 import time
@@ -47,3 +48,23 @@ def test_device_trace_and_annotate(tmp_path):
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "htool_product" for e in events)
+
+
+def _traced_helper():
+    return torch.ones(32, 32) @ torch.ones(32, 4)
+
+
+@pytest.mark.parametrize("host_profile", [False, True])
+def test_device_trace_host_profile(tmp_path, host_profile):
+    """``host_profile=True`` (the JAX package's ``device_trace`` flag) also
+    records the host's Python calls, as ``python_function`` events in the
+    trace; without it there are none."""
+    with device_trace(str(tmp_path / "trace"), host_profile=host_profile) as prof:
+        _traced_helper()
+    calls = [e.name for e in prof.events() if "_traced_helper" in e.name]
+    assert bool(calls) == host_profile, calls
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    python = [e for e in events if e.get("cat") == "python_function"]
+    assert bool(python) == host_profile
+    assert any("_traced_helper" in e["name"] for e in python) == host_profile
