@@ -23,6 +23,7 @@ import torch
 from ..clustering.cluster_tree import ClusterTree
 from ..generator import Generator, TransposedGenerator
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .aca import batched_partial_aca
 from .compressors import batched_full_aca, batched_recompress, batched_svd_compress
 from .block_tree import BlockTreePlan, plan_block_tree
@@ -241,94 +242,98 @@ def assemble_from_plan(
 
     # ---------------- admissible leaves: batched ACA ----------------
     t_aca0 = time.perf_counter()
-    for (bm, bn, mirror, swap), leaves in sorted(adm_groups.items()):
-        t_offs = np.array([l.t_off for l in leaves], dtype=np.int64)
-        s_offs = np.array([l.s_off for l in leaves], dtype=np.int64)
-        t_szs = np.array([l.t_size for l in leaves], dtype=np.int64)
-        s_szs = np.array([l.s_size for l in leaves], dtype=np.int64)
+    with span("htool.assembly.aca"):
+        for (bm, bn, mirror, swap), leaves in sorted(adm_groups.items()):
+            t_offs = np.array([l.t_off for l in leaves], dtype=np.int64)
+            s_offs = np.array([l.s_off for l in leaves], dtype=np.int64)
+            t_szs = np.array([l.t_size for l in leaves], dtype=np.int64)
+            s_szs = np.array([l.s_size for l in leaves], dtype=np.int64)
 
-        rows = _block_indices(perm_t, t_offs, t_szs, bm)
-        cols = _block_indices(perm_s, s_offs, s_szs, bn)
+            rows = _block_indices(perm_t, t_offs, t_szs, bm)
+            cols = _block_indices(perm_s, s_offs, s_szs, bn)
 
-        # advantage bound caps the useful rank (partialACA.hpp:84)
-        max_useful = int(np.max((t_szs * s_szs) // (t_szs + s_szs))) + 1
-        rmax = min(max_useful, min(bm, bn))
-        if max_rank is not None:
-            rmax = min(rmax, max_rank)
-        if reqrank > 0:
-            rmax = min(max(rmax, reqrank), min(bm, bn))
-        rmax = max(rmax, 1)
+            # advantage bound caps the useful rank (partialACA.hpp:84)
+            max_useful = int(np.max((t_szs * s_szs) // (t_szs + s_szs))) + 1
+            rmax = min(max_useful, min(bm, bn))
+            if max_rank is not None:
+                rmax = min(rmax, max_rank)
+            if reqrank > 0:
+                rmax = min(max(rmax, reqrank), min(bm, bn))
+            rmax = max(rmax, 1)
 
-        # estimator-based compressors stop at a tighter internal tolerance
-        # so the GLOBAL error honors the user's epsilon
-        eps_stop = plan.epsilon * (
-            _ACA_STOP_FACTOR if compressor in _PARTIAL else 1.0
-        )
-        if swap:
-            # transposed walk (sympartialACA orientation): compress Aᵀ, then
-            # A = (U_B V_B)ᵀ = V_Bᵀ · U_Bᵀ
-            U_B, V_B, rank, failed = _compress_escalating(
-                compress, TransposedGenerator(generator), cols, rows,
-                s_szs, t_szs, eps_stop, rmax, reqrank,
+            # estimator-based compressors stop at a tighter internal tolerance
+            # so the GLOBAL error honors the user's epsilon
+            eps_stop = plan.epsilon * (
+                _ACA_STOP_FACTOR if compressor in _PARTIAL else 1.0
             )
-            U = V_B.transpose(1, 2)
-            V = U_B.transpose(1, 2)
-        else:
-            U, V, rank, failed = _compress_escalating(
-                compress, generator, rows, cols, t_szs, s_szs, eps_stop,
-                rmax, reqrank,
-            )
-
-        if recompress:
-            U, V, new_rank = batched_recompress(U, V, dev(rank), plan.epsilon)
-            rank = np.where(failed, 0, new_rank.cpu().numpy()).astype(np.int64)
-
-        # --- successful blocks: re-pack into tight storage buckets ---
-        # storage classes use mult32 dims and one pow2 rank per class; rows,
-        # cols and rank columns beyond the true sizes are exact zeros, so
-        # slicing is lossless
-        ok = np.nonzero(~failed & (rank > 0))[0]
-        if ok.size:
-            sclasses: dict[tuple[int, int], list[int]] = {}
-            for i in ok:
-                key = (
-                    min(bm, _pad_dim(int(t_szs[i]), "mult32")),
-                    min(bn, _pad_dim(int(s_szs[i]), "mult32")),
+            if swap:
+                # transposed walk (sympartialACA orientation): compress Aᵀ, then
+                # A = (U_B V_B)ᵀ = V_Bᵀ · U_Bᵀ
+                U_B, V_B, rank, failed = _compress_escalating(
+                    compress, TransposedGenerator(generator), cols, rows,
+                    s_szs, t_szs, eps_stop, rmax, reqrank,
                 )
-                sclasses.setdefault(key, []).append(int(i))
-            for (bm8, bn8), idxs in sorted(sclasses.items()):
-                sel = np.array(idxs)
-                rc = min(_pad_rank(int(rank[sel].max())), rmax)
-                sel_t = dev(sel)
-                lr_buckets.append(
-                    LowRankBucket(
-                        U=U[sel_t, :bm8, :rc].contiguous(),
-                        V=V[sel_t, :rc, :bn8].contiguous(),
-                        t_off=dev(t_offs[sel]),
-                        s_off=dev(s_offs[sel]),
-                        t_sizes=t_szs[sel],
-                        s_sizes=s_szs[sel],
-                        ranks=rank[sel],
-                        mirror=mirror,
+                U = V_B.transpose(1, 2)
+                V = U_B.transpose(1, 2)
+            else:
+                U, V, rank, failed = _compress_escalating(
+                    compress, generator, rows, cols, t_szs, s_szs, eps_stop,
+                    rmax, reqrank,
+                )
+
+            if recompress:
+                U, V, new_rank = batched_recompress(U, V, dev(rank), plan.epsilon)
+                rank = np.where(failed, 0, new_rank.cpu().numpy()).astype(np.int64)
+
+            # --- successful blocks: re-pack into tight storage buckets ---
+            # storage classes use mult32 dims and one pow2 rank per class; rows,
+            # cols and rank columns beyond the true sizes are exact zeros, so
+            # slicing is lossless
+            ok = np.nonzero(~failed & (rank > 0))[0]
+            if ok.size:
+                sclasses: dict[tuple[int, int], list[int]] = {}
+                for i in ok:
+                    key = (
+                        min(bm, _pad_dim(int(t_szs[i]), "mult32")),
+                        min(bn, _pad_dim(int(s_szs[i]), "mult32")),
                     )
-                )
+                    sclasses.setdefault(key, []).append(int(i))
+                for (bm8, bn8), idxs in sorted(sclasses.items()):
+                    sel = np.array(idxs)
+                    rc = min(_pad_rank(int(rank[sel].max())), rmax)
+                    sel_t = dev(sel)
+                    lr_buckets.append(
+                        LowRankBucket(
+                            U=U[sel_t, :bm8, :rc].contiguous(),
+                            V=V[sel_t, :rc, :bn8].contiguous(),
+                            t_off=dev(t_offs[sel]),
+                            s_off=dev(s_offs[sel]),
+                            t_sizes=t_szs[sel],
+                            s_sizes=s_szs[sel],
+                            ranks=rank[sel],
+                            mirror=mirror,
+                        )
+                    )
 
-        # --- failed blocks: dense fallback (false positives) ---
-        bad = np.nonzero(failed)[0]
-        n_false_positive += int(bad.size)
-        for i in bad:
-            l = leaves[int(i)]
-            key = (
-                _pad_dim(l.t_size, "mult32"),
-                _pad_dim(l.s_size, "mult32"),
-                l.mirror,
-                False,
-            )
-            dense_groups.setdefault(key, []).append(l)
-        del U, V
+            # --- failed blocks: dense fallback (false positives) ---
+            bad = np.nonzero(failed)[0]
+            n_false_positive += int(bad.size)
+            for i in bad:
+                l = leaves[int(i)]
+                key = (
+                    _pad_dim(l.t_size, "mult32"),
+                    _pad_dim(l.s_size, "mult32"),
+                    l.mirror,
+                    False,
+                )
+                dense_groups.setdefault(key, []).append(l)
+            del U, V
+        # the time covers the device's work: the last steps' repacking copies
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    t_aca = time.perf_counter() - t_aca0
 
     # ---------------- dense leaves: batched generator gather ----------------
-    t_aca = time.perf_counter() - t_aca0
     t_dense0 = time.perf_counter()
     for (bm, bn, mirror, _), leaves in sorted(dense_groups.items()):
         if not leaves:
@@ -385,7 +390,8 @@ def assemble_from_plan(
         n_dense_blocks=sum(b.n_blocks for b in dense_buckets),
         n_low_rank_blocks=sum(b.n_blocks for b in lr_buckets),
         assembly_walltime=time.perf_counter() - t0,
-        # phase breakdown: compression vs dense generator evaluation
+        # phase breakdown: compression (ending at a device sync, the span
+        # htool.assembly.aca) vs dense generator evaluation
         aca_walltime=t_aca,
         dense_blocks_walltime=time.perf_counter() - t_dense0,
     )

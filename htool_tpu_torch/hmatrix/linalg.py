@@ -26,6 +26,7 @@ import torch
 from ..ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
 from ..ops.cut import lr_split_wanted
 from ..ops.tiled_matvec import build_tile_plan, build_tile_plan_lr_split, tiled_bucket_matvec
+from ..utils.profiling import span
 from .hmatrix import DenseBucket, HMatrix
 
 __all__ = [
@@ -172,46 +173,48 @@ def matvec(h: HMatrix, x, op: str = "N"):
     complex x runs the real kernels on x and y viewed as real ``[·, 2k]``
     tensors (``torch.view_as_real``, no copy): the blocks are real, so the
     real and imaginary parts are 2k independent columns.  Each call adds
-    one to ``matvec.products``.
+    one to ``matvec.products`` and is a ``htool.hmatrix.product`` span
+    (:func:`..utils.profiling.span`).
     """
-    x = torch.as_tensor(x, device=h.device)
-    squeeze = x.ndim == 1
-    if squeeze:
-        x = x[:, None]
+    with span("htool.hmatrix.product"):
+        x = torch.as_tensor(x, device=h.device)
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x[:, None]
 
-    m_loc, n_glob = h.shape
-    out_len = m_loc if op == "N" else n_glob
-    dtype = torch.promote_types(h.dtype, x.dtype)
-    k = x.shape[1]
+        m_loc, n_glob = h.shape
+        out_len = m_loc if op == "N" else n_glob
+        dtype = torch.promote_types(h.dtype, x.dtype)
+        k = x.shape[1]
 
-    # pad widths: max block extent so gathers/scatters stay in range
-    pad_in = _pad_in_of(h)
-    x_pad = torch.cat([x.to(dtype), torch.zeros((pad_in, k), dtype=dtype, device=x.device)])
-    y_pad = torch.zeros((out_len + pad_in, k), dtype=dtype, device=x.device)
-    kdtype, x_k, y_k = _kernel_operands(h.dtype, x_pad, y_pad)
+        # pad widths: max block extent so gathers/scatters stay in range
+        pad_in = _pad_in_of(h)
+        x_pad = torch.cat([x.to(dtype), torch.zeros((pad_in, k), dtype=dtype, device=x.device)])
+        y_pad = torch.zeros((out_len + pad_in, k), dtype=dtype, device=x.device)
+        kdtype, x_k, y_k = _kernel_operands(h.dtype, x_pad, y_pad)
 
-    for bucket in h.dense_buckets + h.lr_buckets:
-        blocks = (bucket.data,) if isinstance(bucket, DenseBucket) else (bucket.U, bucket.V)
-        for in_side, out_side, mode, is_mirror in _bucket_terms(bucket, op, h.symmetry):
-            plan = bucket.plan_t if out_side == "t" else bucket.plan_s
-            if plan is None:
-                _unplanned_term(blocks, *_term_offsets(h.t_root_off, bucket, in_side, out_side,
-                                                       is_mirror), x_k, y_k, kdtype, mode)
-                continue
-            if plan.out_len != y_pad.shape[0]:
-                raise ValueError(
-                    f"tiled plan writes {plan.out_len} rows, the product has "
-                    f"{y_pad.shape[0]}: prepare_tiled_matvec again after "
-                    "changing the H-matrix"
-                )
-            if plan.dtype != kdtype:
-                plan = plan.astype(kdtype)
-            tiled_bucket_matvec(plan, x_k, out=y_k,
-                                conj=kdtype.is_complex and mode in ("C", "conj"))
+        for bucket in h.dense_buckets + h.lr_buckets:
+            blocks = (bucket.data,) if isinstance(bucket, DenseBucket) else (bucket.U, bucket.V)
+            for in_side, out_side, mode, is_mirror in _bucket_terms(bucket, op, h.symmetry):
+                plan = bucket.plan_t if out_side == "t" else bucket.plan_s
+                if plan is None:
+                    _unplanned_term(blocks, *_term_offsets(h.t_root_off, bucket, in_side, out_side,
+                                                           is_mirror), x_k, y_k, kdtype, mode)
+                    continue
+                if plan.out_len != y_pad.shape[0]:
+                    raise ValueError(
+                        f"tiled plan writes {plan.out_len} rows, the product has "
+                        f"{y_pad.shape[0]}: prepare_tiled_matvec again after "
+                        "changing the H-matrix"
+                    )
+                if plan.dtype != kdtype:
+                    plan = plan.astype(kdtype)
+                tiled_bucket_matvec(plan, x_k, out=y_k,
+                                    conj=kdtype.is_complex and mode in ("C", "conj"))
 
-    matvec.products += 1
-    y = y_pad[:out_len]
-    return y[:, 0] if squeeze else y
+        matvec.products += 1
+        y = y_pad[:out_len]
+        return y[:, 0] if squeeze else y
 
 
 matvec.products = 0

@@ -37,7 +37,9 @@ stores them.  CPU tensors run the plain version (gather → ``bmm`` →
 other dtypes raise.
 Each term that goes to the GPU adds one to the wrapper's ``launches`` and to
 its ``launches_by_dtype[dtype]``, and its CUDA launches (two for a two-stage
-term) to ``cuda_launches``; a bucket with no blocks launches nothing.
+term) to ``cuda_launches``; a bucket with no blocks launches nothing.  Each
+term that runs the plain version adds one to the process counter
+``plain_calls`` (:func:`..utils.profiling.count`).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import count
 from .cut import cut_rule, lr_split_wanted, lr_stage_shapes, staging_rows
 
 __all__ = [
@@ -149,6 +152,7 @@ def dense_bucket_matvec(data, in_off, out_off, x_pad, trans: bool, out_len: int,
     ``out`` when it is given."""
     y, k = _checked("dense_bucket_matvec", [data], in_off, out_off, x_pad, out_len, out)
     if x_pad.device.type == "cpu":
+        count("plain_calls")
         return dense_bucket_matvec_reference(data, in_off, out_off, x_pad, trans, out_len,
                                              in_root=in_root, out_root=out_root, out=out,
                                              conj=conj)
@@ -174,6 +178,7 @@ def lr_bucket_matvec(U, V, in_off, out_off, x_pad, trans: bool, out_len: int,
     :func:`..ops.cut.lr_split_wanted` decides from the shape and k."""
     y, k = _checked("lr_bucket_matvec", [U, V], in_off, out_off, x_pad, out_len, out)
     if x_pad.device.type == "cpu":
+        count("plain_calls")
         return lr_bucket_matvec_reference(U, V, in_off, out_off, x_pad, trans, out_len,
                                           in_root=in_root, out_root=out_root, out=out,
                                           conj=conj)

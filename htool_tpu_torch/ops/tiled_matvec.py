@@ -68,6 +68,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from .cut import cut_rule, panels, staging_rows
 
 __all__ = [
@@ -492,8 +493,11 @@ def tiled_bucket_matvec(plan, x_pad: torch.Tensor,
     version.  Each term that goes to the GPU adds one to
     ``tiled_bucket_matvec.launches`` and to
     ``tiled_bucket_matvec.launches_by_dtype[dtype]``; the CUDA launches it
-    makes (two for a split plan) add to ``tiled_bucket_matvec.cuda_launches``."""
+    makes (two for a split plan) add to ``tiled_bucket_matvec.cuda_launches``;
+    a term on the CPU adds one to the process counter ``plain_calls``
+    (:func:`..utils.profiling.count`)."""
     if x_pad.device.type == "cpu":
+        count("plain_calls")
         return tiled_bucket_matvec_reference(plan, x_pad, out, conj)
     if x_pad.device.type != "cuda":
         raise ValueError(f"tiled_bucket_matvec: unsupported device {x_pad.device}")

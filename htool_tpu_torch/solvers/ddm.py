@@ -34,6 +34,7 @@ import torch
 
 from ..clustering.cluster_tree import ClusterTree
 from ..generator import Generator
+from ..utils.profiling import count, span
 from .krylov import KrylovResult, block_gmres, cg, gmres
 
 __all__ = [
@@ -58,16 +59,17 @@ def build_geometric_overlap(
     pts_c = tree.points[tree.permutation]  # cluster-ordered coordinates
     radius = float(n_layers_or_radius)
     out = []
-    kd = cKDTree(pts_c)
-    for p in range(P):
-        off, sz = int(offs[p]), int(sizes[p])
-        if radius <= 0:
-            out.append(np.zeros(0, np.int64))
-            continue
-        near = kd.query_ball_point(pts_c[off : off + sz], r=radius)
-        idx = np.unique(np.concatenate([np.asarray(a, np.int64) for a in near]))
-        mask = (idx < off) | (idx >= off + sz)
-        out.append(idx[mask])
+    with span("htool.schwarz.overlap"):  # host work only
+        kd = cKDTree(pts_c)
+        for p in range(P):
+            off, sz = int(offs[p]), int(sizes[p])
+            if radius <= 0:
+                out.append(np.zeros(0, np.int64))
+                continue
+            near = kd.query_ball_point(pts_c[off : off + sz], r=radius)
+            idx = np.unique(np.concatenate([np.asarray(a, np.int64) for a in near]))
+            mask = (idx < off) | (idx >= off + sz)
+            out.append(idx[mask])
     return out
 
 
@@ -89,11 +91,12 @@ class SchwarzPreconditioner:
 
     def apply(self, r):
         """r: [N, k] cluster numbering -> z [N, k]."""
-        squeeze = r.ndim == 1
-        if squeeze:
-            r = r[:, None]
-        z = _schwarz_apply(self.idx, self.weights, self.inv, r)
-        return z[:, 0] if squeeze else z
+        with span("htool.schwarz.apply", device=r):
+            squeeze = r.ndim == 1
+            if squeeze:
+                r = r[:, None]
+            z = _schwarz_apply(self.idx, self.weights, self.inv, r)
+            return z[:, 0] if squeeze else z
 
     def __call__(self, r):
         return self.apply(r)
@@ -148,14 +151,15 @@ def _build_schwarz(
 
     # assemble local dense matrices batched: rows/cols in user numbering
     perm_ext = np.concatenate([perm, [0]])  # trash slot maps to any point
-    rows_user = torch.as_tensor(perm_ext[idx], device=device)  # [P, n_max]
-    A_loc = generator.block(rows_user, rows_user)
-    # zero padded rows/cols, identity on padded diagonal to keep LU valid
-    valid = torch.as_tensor(idx < N, device=device)
-    A_loc.masked_fill_(~(valid[:, :, None] & valid[:, None, :]), 0)
-    A_loc.diagonal(dim1=1, dim2=2).add_((~valid).to(A_loc.dtype))
-    inv = torch.linalg.inv(A_loc)
-    del A_loc
+    with span("htool.schwarz.local", sync=device):
+        rows_user = torch.as_tensor(perm_ext[idx], device=device)  # [P, n_max]
+        A_loc = generator.block(rows_user, rows_user)
+        # zero padded rows/cols, identity on padded diagonal to keep LU valid
+        valid = torch.as_tensor(idx < N, device=device)
+        A_loc.masked_fill_(~(valid[:, :, None] & valid[:, None, :]), 0)
+        A_loc.diagonal(dim1=1, dim2=2).add_((~valid).to(A_loc.dtype))
+        inv = torch.linalg.inv(A_loc)
+        del A_loc
 
     real = torch.empty((), dtype=dtype).real.dtype
     return SchwarzPreconditioner(
@@ -187,15 +191,16 @@ class BLRSchwarzPreconditioner:
         from ..hmatrix.blr import blr_solve
         from ..hmatrix.blr2 import TwoLevelBLR, blr2_solve
 
-        squeeze = r.ndim == 1
-        if squeeze:
-            r = r[:, None]
-        z = torch.zeros_like(r)
-        for idx, w, F in zip(self.idx, self.weights, self.factors):
-            solve = blr2_solve if isinstance(F, TwoLevelBLR) else blr_solve
-            z_loc = solve(F, r[idx], user_numbering=True)
-            z.index_add_(0, idx, (z_loc * w[:, None].to(z_loc.dtype)).to(z.dtype))
-        return z[:, 0] if squeeze else z
+        with span("htool.schwarz.apply", device=r):
+            squeeze = r.ndim == 1
+            if squeeze:
+                r = r[:, None]
+            z = torch.zeros_like(r)
+            for idx, w, F in zip(self.idx, self.weights, self.factors):
+                solve = blr2_solve if isinstance(F, TwoLevelBLR) else blr_solve
+                z_loc = solve(F, r[idx], user_numbering=True)
+                z.index_add_(0, idx, (z_loc * w[:, None].to(z_loc.dtype)).to(z.dtype))
+            return z[:, 0] if squeeze else z
 
     def __call__(self, r):
         return self.apply(r)
@@ -360,35 +365,39 @@ class DDMSolver:
         x0=None,
     ):
         """Solve A x = b in USER numbering.  Returns (x, infos)."""
-        b = torch.as_tensor(b, device=self.device)
-        squeeze = b.ndim == 1
-        if squeeze:
-            b = b[:, None]
-        perm = torch.as_tensor(self.tree.permutation, device=self.device)
-        bc = b[perm]
+        with span("htool.ddm.solve"):
+            b = torch.as_tensor(b, device=self.device)
+            squeeze = b.ndim == 1
+            if squeeze:
+                b = b[:, None]
+            perm = torch.as_tensor(self.tree.permutation, device=self.device)
+            bc = b[perm]
 
-        M = self._preconditioner()
-        t0 = time.perf_counter()
-        if krylov == "cg":
-            result: KrylovResult = cg(self._apply, bc, M=M, tol=tol, maxiter=maxiter, x0=x0)
-        elif krylov == "gmres":
-            result = gmres(
-                self._apply, bc, M=M, tol=tol, maxiter=maxiter, restart=restart, x0=x0
-            )
-        elif krylov == "block_gmres":
-            result = block_gmres(
-                self._apply, bc, M=M, tol=tol, maxiter=maxiter, restart=restart, x0=x0
-            )
-        else:
-            raise ValueError(f"unknown krylov method {krylov!r}")
-        xc = result.x
-        _sync(self.device)
-        self.infos["Solve_walltime"] = time.perf_counter() - t0
-        self.infos["Krylov"] = krylov
-        self.infos["Nb_it"] = int(result.iterations)
-        self.infos["Residual"] = float(result.residual)
-        self.infos["Converged"] = bool(result.converged)
+            M = self._preconditioner()
+            t0 = time.perf_counter()
+            if krylov == "cg":
+                result: KrylovResult = cg(self._apply, bc, M=M, tol=tol, maxiter=maxiter, x0=x0)
+            elif krylov == "gmres":
+                result = gmres(
+                    self._apply, bc, M=M, tol=tol, maxiter=maxiter, restart=restart, x0=x0
+                )
+            elif krylov == "block_gmres":
+                result = block_gmres(
+                    self._apply, bc, M=M, tol=tol, maxiter=maxiter, restart=restart, x0=x0
+                )
+            else:
+                raise ValueError(f"unknown krylov method {krylov!r}")
+            xc = result.x
+            if self.device.type == "cuda":
+                count("syncs")
+                with span("htool.krylov.wait"):
+                    _sync(self.device)
+            self.infos["Solve_walltime"] = time.perf_counter() - t0
+            self.infos["Krylov"] = krylov
+            self.infos["Nb_it"] = int(result.iterations)
+            self.infos["Residual"] = float(result.residual)
+            self.infos["Converged"] = bool(result.converged)
 
-        x = torch.empty_like(xc)
-        x[perm] = xc
-        return (x[:, 0] if squeeze else x), dict(self.infos)
+            x = torch.empty_like(xc)
+            x[perm] = xc
+            return (x[:, 0] if squeeze else x), dict(self.infos)

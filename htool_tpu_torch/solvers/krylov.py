@@ -2,11 +2,14 @@
 
 Port of ``htool_tpu/solvers/krylov.py`` (the role of HPDDM's Krylov loop,
 ``solvers/ddm.hpp:193``).  The ``lax.while_loop`` iterations become Python
-loops over tensors that read their stopping tests on the host; the
-arithmetic is the reference's: per-column step sizes over multiple
-right-hand sides, left preconditioning, modified Gram-Schmidt, the same
-Givens convention, the preconditioned stopping test and a true final
-residual; for block GMRES the blocked Gram-Schmidt, the Gram-based QR
+loops over tensors that read their stopping tests on the host (``_read``:
+each read is counted in ``syncs`` and spanned as ``htool.krylov.wait``;
+each iteration is a ``htool.krylov.step`` span, which ends with the next
+iteration's stopping test); the arithmetic is the reference's: per-column
+step sizes over multiple right-hand sides, left preconditioning, modified
+Gram-Schmidt, the same Givens convention, the preconditioned stopping test
+and a true final residual; for block GMRES the blocked Gram-Schmidt, the
+Gram-based QR
 through a shifted Cholesky factor and the least-squares residual per step.
 The reference's ``axis_name`` hook is ``mesh=``: under a
 :class:`..parallel.collectives.Mesh` the vectors are the per-partition
@@ -20,6 +23,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils.profiling import count, span
 
 __all__ = ["cg", "gmres", "block_gmres", "KrylovResult"]
 
@@ -64,6 +69,15 @@ def _identity(v):
     return v
 
 
+def _read(t):
+    """``t.item()``: a host read of a device value, for which the host waits
+    on the device.  Counted in the process counter ``syncs``, spanned as
+    ``htool.krylov.wait``."""
+    count("syncs")
+    with span("htool.krylov.wait"):
+        return t.item()
+
+
 def _rhs(b, x0):
     b = torch.as_tensor(b)
     squeeze = b.ndim == 1
@@ -102,23 +116,26 @@ def cg(
     p = z
     rz = _vdot_cols(r, z)
     it = 0
-    while it < maxiter and bool(torch.any(_norm_cols(r) > tol * bnorm)):
-        Ap = A(p)
-        pAp = _vdot_cols(p, Ap)
-        alpha = rz / torch.where(pAp == 0, 1.0, pAp)
-        # freeze converged columns
-        active = _norm_cols(r) > tol * bnorm
-        alpha = torch.where(active, alpha, 0.0)
-        x = x + alpha[None, :] * p
-        r = r - alpha[None, :] * Ap
-        z = M(r)
-        rz_new = _vdot_cols(r, z)
-        beta = rz_new / torch.where(rz == 0, 1.0, rz)
-        beta = torch.where(active, beta, 0.0)
-        p = z + beta[None, :] * p
-        rz = rz_new
-        it += 1
-    res = float(torch.max(_norm_cols(r) / bnorm))
+    go = it < maxiter and _read(torch.any(_norm_cols(r) > tol * bnorm))
+    while go:
+        with span("htool.krylov.step"):  # a step ends with the next one's stopping test
+            Ap = A(p)
+            pAp = _vdot_cols(p, Ap)
+            alpha = rz / torch.where(pAp == 0, 1.0, pAp)
+            # freeze converged columns
+            active = _norm_cols(r) > tol * bnorm
+            alpha = torch.where(active, alpha, 0.0)
+            x = x + alpha[None, :] * p
+            r = r - alpha[None, :] * Ap
+            z = M(r)
+            rz_new = _vdot_cols(r, z)
+            beta = rz_new / torch.where(rz == 0, 1.0, rz)
+            beta = torch.where(active, beta, 0.0)
+            p = z + beta[None, :] * p
+            rz = rz_new
+            it += 1
+            go = it < maxiter and _read(torch.any(_norm_cols(r) > tol * bnorm))
+    res = _read(torch.max(_norm_cols(r) / bnorm))
     out = x[:, 0] if squeeze else x
     return KrylovResult(out, it, res, res <= tol)
 
@@ -173,51 +190,54 @@ def gmres(
 
         # after j steps the rotated residual of each column is |g[j]|
         j = 0
-        while j < m and bool(torch.any(g[j].abs() / bnorm > tol)):
-            w = M(A(V[j])).to(dtype)  # [n, k]
+        go = j < m and _read(torch.any(g[j].abs() / bnorm > tol))
+        while go:
+            with span("htool.krylov.step"):
+                w = M(A(V[j])).to(dtype)  # [n, k]
 
-            # modified Gram-Schmidt against V[0..j]
-            hcol = torch.zeros((m + 1, k), dtype=dtype, device=dev)
-            for i in range(j + 1):
-                hij = _vdot_cols(V[i], w)
-                w = w - hij[None, :] * V[i]
-                hcol[i] = hij
-            hlast = _norm_cols(w).to(dtype)
-            hcol[j + 1] = hlast
-            V[j + 1] = w / torch.where(hlast.abs() == 0, 1.0, hlast)[None, :]
+                # modified Gram-Schmidt against V[0..j]
+                hcol = torch.zeros((m + 1, k), dtype=dtype, device=dev)
+                for i in range(j + 1):
+                    hij = _vdot_cols(V[i], w)
+                    w = w - hij[None, :] * V[i]
+                    hcol[i] = hij
+                hlast = _norm_cols(w).to(dtype)
+                hcol[j + 1] = hlast
+                V[j + 1] = w / torch.where(hlast.abs() == 0, 1.0, hlast)[None, :]
 
-            # apply previous Givens rotations to the new column.
-            # Convention: G = [[c, s], [-conj(s), c]] with c real >= 0.
-            for i in range(j):
-                t1 = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
-                t2 = -sn[i].conj() * hcol[i] + cs[i] * hcol[i + 1]
-                hcol[i] = t1
-                hcol[i + 1] = t2
+                # apply previous Givens rotations to the new column.
+                # Convention: G = [[c, s], [-conj(s), c]] with c real >= 0.
+                for i in range(j):
+                    t1 = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                    t2 = -sn[i].conj() * hcol[i] + cs[i] * hcol[i + 1]
+                    hcol[i] = t1
+                    hcol[i + 1] = t2
 
-            # new Givens zeroing hcol[j+1]:
-            # c = |h1|/d, s = phase(h1) * conj(h2)/d  ->  G [h1; h2] = [phase*d; 0]
-            h1, h2 = hcol[j].clone(), hcol[j + 1].clone()
-            denom = torch.sqrt(h1.abs() ** 2 + h2.abs() ** 2)
-            denom_s = torch.where(denom == 0, 1.0, denom)
-            absh1 = h1.abs()
-            phase = torch.where(
-                absh1 == 0, torch.ones_like(h1),
-                h1 / torch.where(absh1 == 0, 1.0, absh1).to(h1.dtype),
-            )
-            c_new = (absh1 / denom_s).to(dtype)
-            s_new = (phase * h2.conj() / denom_s.to(h1.dtype)).to(dtype)
-            cs[j] = c_new
-            sn[j] = s_new
-            hcol[j] = c_new * h1 + s_new * h2
-            hcol[j + 1] = 0.0
-            H[:, j, :] = hcol
+                # new Givens zeroing hcol[j+1]:
+                # c = |h1|/d, s = phase(h1) * conj(h2)/d  ->  G [h1; h2] = [phase*d; 0]
+                h1, h2 = hcol[j].clone(), hcol[j + 1].clone()
+                denom = torch.sqrt(h1.abs() ** 2 + h2.abs() ** 2)
+                denom_s = torch.where(denom == 0, 1.0, denom)
+                absh1 = h1.abs()
+                phase = torch.where(
+                    absh1 == 0, torch.ones_like(h1),
+                    h1 / torch.where(absh1 == 0, 1.0, absh1).to(h1.dtype),
+                )
+                c_new = (absh1 / denom_s).to(dtype)
+                s_new = (phase * h2.conj() / denom_s.to(h1.dtype)).to(dtype)
+                cs[j] = c_new
+                sn[j] = s_new
+                hcol[j] = c_new * h1 + s_new * h2
+                hcol[j + 1] = 0.0
+                H[:, j, :] = hcol
 
-            # update residual vector g
-            g1, g2 = g[j].clone(), g[j + 1].clone()
-            g[j] = c_new * g1 + s_new * g2
-            g[j + 1] = -s_new.conj() * g1 + c_new * g2
-            it += 1
-            j += 1
+                # update residual vector g
+                g1, g2 = g[j].clone(), g[j + 1].clone()
+                g[j] = c_new * g1 + s_new * g2
+                g[j + 1] = -s_new.conj() * g1 + c_new * g2
+                it += 1
+                j += 1
+                go = j < m and _read(torch.any(g[j].abs() / bnorm > tol))
 
         # back-substitute H y = g over the j leading columns
         y = torch.zeros((m, k), dtype=dtype, device=dev)
@@ -226,12 +246,12 @@ def gmres(
             hii = H[i, i]
             y[i] = num / torch.where(hii.abs() == 0, 1.0, hii)
         x = x + torch.einsum("jnk,jk->nk", V[:m], y)
-        res = float(torch.max(_norm_cols(M(b - A(x))) / bnorm))
+        res = _read(torch.max(_norm_cols(M(b - A(x))) / bnorm))
 
     # report the TRUE (unpreconditioned) relative residual
     tnorm = _norm_cols(b)
     tnorm = torch.where(tnorm == 0, 1.0, tnorm)
-    true_res = float(torch.max(_norm_cols(b - A(x)) / tnorm))
+    true_res = _read(torch.max(_norm_cols(b - A(x)) / tnorm))
     out = x[:, 0] if squeeze else x
     return KrylovResult(out, it, true_res, res <= tol)
 
@@ -331,25 +351,28 @@ def block_gmres(
 
         j = 0
         res = torch.full((mu,), float("inf"), dtype=bnorm.dtype, device=dev)
-        while j < m and it < maxiter and bool(torch.any(res > tol)):
-            W = M(A(V[j])).to(dtype)
-            for i in range(j + 1):  # blocked modified Gram-Schmidt
-                Hij = gram(V[i], W)
-                W = W - V[i] @ Hij
-                H[i * mu : (i + 1) * mu, j * mu : (j + 1) * mu] += Hij
-            Q, Rj = _block_qr(W, gram)
-            H[(j + 1) * mu : (j + 2) * mu, j * mu : (j + 1) * mu] = Rj
-            V[j + 1] = Q
-            it += 1
-            j += 1
-            _, r = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
-            res = r.to(bnorm.dtype) / bnorm
+        go = j < m and it < maxiter and _read(torch.any(res > tol))
+        while go:
+            with span("htool.krylov.step"):
+                W = M(A(V[j])).to(dtype)
+                for i in range(j + 1):  # blocked modified Gram-Schmidt
+                    Hij = gram(V[i], W)
+                    W = W - V[i] @ Hij
+                    H[i * mu : (i + 1) * mu, j * mu : (j + 1) * mu] += Hij
+                Q, Rj = _block_qr(W, gram)
+                H[(j + 1) * mu : (j + 2) * mu, j * mu : (j + 1) * mu] = Rj
+                V[j + 1] = Q
+                it += 1
+                j += 1
+                _, r = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
+                res = r.to(bnorm.dtype) / bnorm
+                go = j < m and it < maxiter and _read(torch.any(res > tol))
 
         Y, _ = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
         x = x + torch.einsum("jnp,jpq->nq", V[:j], Y.view(j, mu, mu).to(dtype))
-        res_now = float(torch.max(_norm_cols(M(b - A(x))) / bnorm))
+        res_now = _read(torch.max(_norm_cols(M(b - A(x))) / bnorm))
 
     tnorm = _norm_cols(b)
     tnorm = torch.where(tnorm == 0, 1.0, tnorm)
-    true_res = float(torch.max(_norm_cols(b - A(x)) / tnorm))
+    true_res = _read(torch.max(_norm_cols(b - A(x)) / tnorm))
     return KrylovResult(x, it, true_res, res_now <= tol)
