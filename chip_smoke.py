@@ -171,7 +171,12 @@ Phases (each prints one JSON line):
     < 10·tol, launch both unplanned kernels and call no plain version, hold
     its tensors on its card (``cuda:{rank}`` under NCCL, shared under gloo),
     and the NCCL ranks' cards must be distinct; each rank's card, peak
-    memory, product times and solve times are printed.
+    memory, product times and solve times are printed;
+29. CG's step from CUDA graphs — ``cg_graphs_check`` at n = 20,000 in
+    float32 and float64: the graph solve against the eager loop on one
+    solver (equal iterations, x within 1e-5 and 1e-10 relative, equal CUDA
+    launches and syncs a solve, one step replayed an iteration, an answer
+    not changed by the next solve), each route's mean solve time.
 
 Phase 24 also prints, on a line of its own, the memory still allocated when
 it starts and the largest tensors.  The script's wall time is a line of
@@ -224,6 +229,94 @@ def emit(obj) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cg_graphs_check(n: int, dtype, device="cuda", seed: int = 0, reps: int = 20,
+                    schwarz: str = "asm") -> dict:
+    """CG with its step replayed from CUDA graphs against the eager loop, on
+    one solver: the sphere's symmetric Laplace operator (leaf 100, ε 1e-3,
+    η 100, tiled plans, ``dtype``), one-level ASM over 8 subdomains
+    (overlap 0.05; ``schwarz="none"``: no preconditioner), CG to 1e-6.  The first solve captures (one
+    ``krylov_graph_captures``); then the same right-hand side through the
+    graphs and through the eager loop must take the same iterations, give x
+    within 1e-5 (float32) or 1e-10 (float64) relative, make the same CUDA
+    launches and syncs, and ``krylov_graph_steps`` must count the graph
+    solve's iterations (none the eager one's); a later graph solve of
+    another right-hand side leaves the first answer as it was.  Returns the
+    readings, with each route's mean solve time over ``reps`` solves."""
+    import torch
+
+    import htool_tpu_torch as ht
+    from htool_tpu_torch.hmatrix.linalg import prepare_tiled_matvec
+    from htool_tpu_torch.ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
+    from htool_tpu_torch.ops.tiled_matvec import tiled_bucket_matvec
+    from htool_tpu_torch.solvers import DDMSolver, ddm
+    from htool_tpu_torch.testing import create_sphere, laplace_kernel_symmetric
+    from htool_tpu_torch.utils.profiling import counters
+
+    dev = torch.device(device)
+    pts = create_sphere(n, seed=seed)
+    P = torch.as_tensor(pts, dtype=dtype, device=dev)
+    gen = ht.KernelGenerator(laplace_kernel_symmetric, P, P)
+    tree = ht.build_cluster_tree(pts, max_leaf_size=100, n_partitions=8)
+    H = ht.build_hmatrix(gen, tree, epsilon=1e-3, eta=100.0, symmetry="S", UPLO="L")
+    prepare_tiled_matvec(H)
+    solver = DDMSolver(H, gen, tree, schwarz=schwarz, overlap_radius=0.05)
+    rng = np.random.RandomState(seed)
+    b1, b2 = (torch.as_tensor(rng.randn(n), dtype=dtype, device=dev) for _ in range(2))
+
+    def counts():
+        c = counters()
+        return dict(launches=tiled_bucket_matvec.cuda_launches + dense_bucket_matvec.cuda_launches
+                    + lr_bucket_matvec.cuda_launches, syncs=c.get("syncs", 0),
+                    steps=c.get("krylov_graph_steps", 0),
+                    captures=c.get("krylov_graph_captures", 0))
+
+    def solve(b, graphs):
+        devices = ddm._GRAPH_DEVICES
+        ddm._GRAPH_DEVICES = devices if graphs else ()
+        try:
+            before = counts()
+            x, infos = solver.solve(b, krylov="cg", tol=1e-6, maxiter=200)
+            after = counts()
+        finally:
+            ddm._GRAPH_DEVICES = devices
+        return x, infos, {k: after[k] - before[k] for k in after}
+
+    def mean_ms(graphs):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            solve(b2, graphs)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    _, _, first = solve(b1, True)
+    x_g, inf_g, c_g = solve(b1, True)
+    x_e, inf_e, c_e = solve(b1, False)
+    kept = x_g.clone()
+    x_2, inf_2, _ = solve(b2, True)
+    rel = float(torch.linalg.norm(x_g - x_e) / torch.linalg.norm(x_e))
+    out = dict(n=n, dtype=str(dtype).removeprefix("torch."), schwarz=schwarz,
+               iterations_graph=inf_g["Nb_it"],
+               iterations_eager=inf_e["Nb_it"], residual_graph=inf_g["Residual"],
+               residual_eager=inf_e["Residual"], x_rel=rel, first_solve=first,
+               graph_solve=c_g, eager_solve=c_e, answer_kept=bool(torch.equal(x_g, kept)),
+               other_rhs_iterations=inf_2["Nb_it"],
+               graph_ms=mean_ms(True), eager_ms=mean_ms(False))
+    limit = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-10
+    require(first["captures"] == 1 and c_g["captures"] == 0 and c_e["captures"] == 0,
+            f"CG graphs: captures {first['captures']}, {c_g['captures']}, {c_e['captures']}")
+    require(inf_g["Nb_it"] == inf_e["Nb_it"] and inf_g["Converged"] and inf_e["Converged"],
+            f"CG graphs: {inf_g['Nb_it']} iterations through the graphs, {inf_e['Nb_it']} eager")
+    require(rel <= limit, f"CG graphs: x {rel:.3e} from the eager solve's (limit {limit})")
+    require(c_g["launches"] == c_e["launches"] > 0 and c_g["syncs"] == c_e["syncs"],
+            f"CG graphs: launches and syncs {c_g} through the graphs, {c_e} eager")
+    require(c_g["steps"] == inf_g["Nb_it"] and c_e["steps"] == 0,
+            f"CG graphs: krylov_graph_steps {c_g['steps']} for {inf_g['Nb_it']} iterations, "
+            f"{c_e['steps']} eager")
+    require(out["answer_kept"], "CG graphs: a later solve changed an answer already returned")
+    return out
 
 
 def profile_window(name, fn, groups=None) -> dict:
@@ -2501,6 +2594,12 @@ def main(argv=None) -> int:
                 f"{what}: ranks share a card: {[r['card'] for r in ranks28]}")
     emit(dict(phase="dist_multiprocess", n=n, partitions=P8, nvidia_smi=smi, cards=n_cards,
               runs=runs28, phase_s=time.perf_counter() - t_phase))
+
+    # ---------------- 29. CG's step from CUDA graphs ----------------
+    t_phase = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        emit(dict(phase="cg_graphs", **cg_graphs_check(20_000, dtype, seed=args.seed),
+                  phase_s=time.perf_counter() - t_phase))
     emit(dict(phase="wall_time", seconds=time.perf_counter() - t_start))
 
     # ---------------- the kernels line ----------------

@@ -21,6 +21,12 @@ each subdomain matrix (:class:`BLRSchwarzPreconditioner`, the reference's
 ``LocalHMatrixSolver``).  A GenEO coarse space (:mod:`.geneo`) passed as
 ``coarse=`` makes the preconditioner two-level, with the additive, deflated
 or balanced correction.
+
+CG's step replays from CUDA graphs (:class:`.krylov.CGGraphs`) where the
+solver can see that nothing in it needs the host: the vectors on a CUDA
+device, an :class:`~htool_tpu_torch.hmatrix.hmatrix.HMatrix` operator, and
+the dense one-level Schwarz apply or no preconditioner.  Every other solve
+issues the same arithmetic eagerly.
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ import torch
 
 from ..clustering.cluster_tree import ClusterTree
 from ..generator import Generator
+from ..hmatrix.hmatrix import DenseBucket
 from ..utils.profiling import count, span
-from .krylov import KrylovResult, block_gmres, cg, gmres
+from .krylov import CGGraphs, KrylovResult, block_gmres, cg, gmres
 
 __all__ = [
     "build_geometric_overlap",
@@ -262,6 +269,24 @@ def _build_blr_schwarz(
                                     factors=factors, variant=variant)
 
 
+# devices on which CG's step is captured; off the card the graphs are
+# stand-ins that run the step eagerly (a seam for the CPU tests)
+_GRAPH_DEVICES = ("cuda",)
+
+
+def _graph_inputs(H, precond) -> tuple:
+    """What CG's captured graphs read besides its own vectors: the
+    operator's buckets, their blocks and plans, and the preconditioner's
+    tensors.  Graphs captured over other objects than these are stale."""
+    out = [precond]
+    if precond is not None:
+        out += [precond.idx, precond.weights, precond.inv]
+    for bucket in H.dense_buckets + H.lr_buckets:
+        out += [bucket, bucket.plan_t, bucket.plan_s]
+        out += [bucket.data] if isinstance(bucket, DenseBucket) else [bucket.U, bucket.V]
+    return tuple(out)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -300,13 +325,17 @@ class DDMSolver:
         self.schwarz = schwarz
         self.device = generator.device
         self.infos: dict = {}
+        self._perm = torch.as_tensor(tree.permutation, device=self.device)  # one copy, not one a solve
 
         from ..hmatrix.hmatrix import HMatrix
         from ..hmatrix.linalg import matvec as h_matvec
         from ..parallel.distributed import DistributedHMatrix
 
+        self._hmatrix = None  # an HMatrix operator, whose products CG can replay
+        self._graphs: Optional[CGGraphs] = None
         if isinstance(operator, HMatrix):
             self._apply = lambda x: h_matvec(operator, x, op="N")
+            self._hmatrix = operator
             dtype = operator.dtype
         elif isinstance(operator, DistributedHMatrix):
             d = operator
@@ -355,6 +384,23 @@ class DDMSolver:
             return one
         return self.coarse.combined_preconditioner(one, self._apply, self.coarse_correction)
 
+    def _cg_graphs(self, b) -> Optional[CGGraphs]:
+        """CG's graphs for a solve of ``b`` (cluster numbering), captured
+        again when what they read has changed; None where the solve is
+        issued eagerly: off a CUDA device, with another operator than an
+        HMatrix, a coarse space, another preconditioner than the dense
+        Schwarz apply, or an operator wider than b."""
+        H, pre = self._hmatrix, self.precond
+        if (H is None or self.coarse is not None or b.device.type not in _GRAPH_DEVICES
+                or not (pre is None or isinstance(pre, SchwarzPreconditioner))
+                or torch.promote_types(H.dtype, b.dtype) != b.dtype):
+            return None
+        key = _graph_inputs(H, pre)
+        old = self._graphs
+        if old is None or len(old.key) != len(key) or any(a is not c for a, c in zip(old.key, key)):
+            self._graphs = CGGraphs(key)
+        return self._graphs
+
     def solve(
         self,
         b,
@@ -370,13 +416,14 @@ class DDMSolver:
             squeeze = b.ndim == 1
             if squeeze:
                 b = b[:, None]
-            perm = torch.as_tensor(self.tree.permutation, device=self.device)
+            perm = self._perm
             bc = b[perm]
 
             M = self._preconditioner()
             t0 = time.perf_counter()
             if krylov == "cg":
-                result: KrylovResult = cg(self._apply, bc, M=M, tol=tol, maxiter=maxiter, x0=x0)
+                result: KrylovResult = cg(self._apply, bc, M=M, tol=tol, maxiter=maxiter, x0=x0,
+                                          _graphs=self._cg_graphs(bc))
             elif krylov == "gmres":
                 result = gmres(
                     self._apply, bc, M=M, tol=tol, maxiter=maxiter, restart=restart, x0=x0

@@ -15,16 +15,20 @@ The reference's ``axis_name`` hook is ``mesh=``: under a
 :class:`..parallel.collectives.Mesh` the vectors are the per-partition
 slices ``[P_local·m, k]`` of the distributed solver, and every dot product
 sums over each slice and then over the partitions through ``psum`` (the
-MPI_Allreduce of HPDDM's Krylov loop).
+MPI_Allreduce of HPDDM's Krylov loop).  CG's arithmetic is written once, as
+in-place updates of its state (``_cg_body``); :class:`..ddm.DDMSolver` may
+hand ``cg`` a :class:`CGGraphs`, and the step is then replayed from CUDA
+graphs captured from that body, the stopping test still read once a step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..utils.profiling import count, span
+from ..utils.profiling import add_tallies, count, span, tallies
 
 __all__ = ["cg", "gmres", "block_gmres", "KrylovResult"]
 
@@ -88,6 +92,186 @@ def _rhs(b, x0):
     return b, x, squeeze
 
 
+class _CGState:
+    """CG's vectors and scalars.  The body (:func:`_cg_body`) reads ``b``
+    and ``x``, writes ``r``, ``p``, ``rz``, ``active`` (the columns still
+    above the tolerance), ``go`` (any of them), ``res`` (the largest
+    relative residual), ``bnorm`` and ``tolb`` (tol · ‖b‖) in its prologue,
+    and updates ``x``, ``r``, ``p``, ``rz``, ``active``, ``go`` and ``res``
+    in place in each step; ``Ap`` and ``z`` live within a step."""
+
+    def __init__(self, b, x):
+        self.b, self.x = b, x
+
+
+def _cg_body(s: _CGState, A, M, tol, vdot, norm):
+    """CG's arithmetic as in-place updates of ``s``: ``(start, step)``, the
+    prologue and the step's segments ``[(name, fn)]`` in order: the
+    product, the vector updates, the preconditioner's apply and the close
+    (the new search direction and the stopping test).  Run eagerly, or
+    captured once and replayed (:class:`CGGraphs`); the same order of
+    operations either way."""
+
+    def start():
+        bnorm = norm(s.b)
+        s.bnorm = torch.where(bnorm == 0, 1.0, bnorm)
+        s.tolb = tol * s.bnorm
+        s.r = s.b - A(s.x)
+        s.x = s.x.to(s.r.dtype)
+        z = M(s.r)
+        s.p = z.to(s.r.dtype, copy=True)
+        s.rz = vdot(s.r, z)
+        rnorm = norm(s.r)
+        s.active = rnorm > s.tolb
+        s.go = torch.any(s.active)
+        s.res = torch.amax(rnorm / s.bnorm, dim=0)
+
+    def product():
+        s.Ap = A(s.p)
+
+    def update():
+        pAp = vdot(s.p, s.Ap)
+        alpha = s.rz / torch.where(pAp == 0, 1.0, pAp)
+        alpha = torch.where(s.active, alpha, 0.0)  # freeze converged columns
+        s.x.add_(alpha[None, :] * s.p)
+        s.r.sub_(alpha[None, :] * s.Ap)
+
+    def apply():
+        s.z = M(s.r)
+
+    def close():
+        rz_new = vdot(s.r, s.z)
+        beta = rz_new / torch.where(s.rz == 0, 1.0, s.rz)
+        beta = torch.where(s.active, beta, 0.0)
+        torch.add(s.z, beta[None, :] * s.p, out=s.p)
+        s.rz.copy_(rz_new)
+        rnorm = norm(s.r)
+        torch.gt(rnorm, s.tolb, out=s.active)  # the next step's, and its stopping test
+        torch.any(s.active, out=s.go)
+        torch.amax(rnorm / s.bnorm, dim=0, out=s.res)  # read once, after the last step
+
+    return start, [("product", product), ("update", update), ("apply", apply), ("close", close)]
+
+
+# the spans a replayed segment opens: those its eager run opens inside the
+# product and the Schwarz apply, the two operands a solver hands to graphs
+_SEGMENT_SPANS = {"product": lambda s: span("htool.hmatrix.product"),
+                  "apply": lambda s: span("htool.schwarz.apply", device=s.r)}
+
+
+class _Eager:
+    """A segment run again at each replay: where CUDA graphs do not exist."""
+
+    def __init__(self, fn):
+        self.replay = fn
+
+
+class _Graph:
+    """A captured segment and the counts its capture made (see
+    :func:`..utils.profiling.tallies`), added again at each replay."""
+
+    def __init__(self, graph, delta):
+        self.graph, self.delta = graph, delta
+
+    def replay(self):
+        self.graph.replay()
+        add_tallies(self.delta)
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(index: int):
+    """The side stream that every capture on device ``index`` runs on.  One
+    stream per device and not one per capture: cuBLAS keeps a workspace for
+    each stream it has run on for the life of the process."""
+    return torch.cuda.Stream(index)
+
+
+def _capture(fn, pool, stream):
+    """Capture ``fn``'s work on ``stream`` into a CUDA graph in memory pool
+    ``pool``.  The capture launches nothing, so the counts it made are taken
+    back and kept with the graph."""
+    before = tallies()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    after = tallies()
+    delta = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+    add_tallies(delta, -1)
+    return _Graph(graph, delta)
+
+
+class _GraphedCG:
+    """CG's static state for one (k, dtype, tol) and its prologue and step
+    segments, captured after one eager warm-up run of the body (which also
+    configures the kernels).  The segments share one memory pool and are
+    captured in the order they replay, so a segment's temporaries are dead
+    when a later one reuses their memory; everything a step hands to the
+    next is written in place into tensors the prologue made."""
+
+    def __init__(self, A, M, b, tol, vdot, norm):
+        self.state = s = _CGState(b.clone(), torch.zeros_like(b))
+        start, step = _cg_body(s, A, M, tol, vdot, norm)
+        start()  # warm-up
+        for _, fn in step:
+            fn()
+        if b.device.type != "cuda":
+            self.start = _Eager(start)
+            self.step = [(name, _Eager(fn)) for name, fn in step]
+            return
+        with torch.cuda.device(b.device):
+            stream = _capture_stream(torch.cuda.current_device())
+            stream.wait_stream(torch.cuda.current_stream())
+            pool = torch.cuda.graph_pool_handle()
+            self.start = _capture(start, pool, stream)
+            self.step = []
+            for name, fn in step:
+                if name == "apply" and M is _identity:
+                    fn()  # z is r itself: nothing to launch
+                    continue
+                self.step.append((name, _capture(fn, pool, stream)))
+            torch.cuda.current_stream().wait_stream(stream)
+
+    def run_step(self):
+        s = self.state
+        for name, seg in self.step:
+            opened = _SEGMENT_SPANS.get(name)
+            if opened is None:
+                seg.replay()
+            else:
+                with opened(s):
+                    seg.replay()
+        count("krylov_graph_steps")
+
+
+class CGGraphs:
+    """The CUDA graphs of :func:`cg`'s step for one operator and
+    preconditioner (:class:`..ddm.DDMSolver` keeps one and hands it to
+    ``cg``).  For each (k, dtype, tol) of the right-hand side the first
+    solve runs the body once eagerly, then captures the prologue and the
+    step's segments (one ``krylov_graph_captures``); every solve copies b
+    and x0 into the static state, replays the prologue, and replays a step
+    (one ``krylov_graph_steps``) after each host read of the stopping test,
+    as the eager loop reads it.  ``key``: what the owner compares to decide
+    whether the graphs still hold (the tensors the captures read)."""
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self._sets: dict = {}
+
+    def runner(self, A, M, b, tol, vdot, norm) -> _GraphedCG:
+        key = (b.shape[1], b.dtype, float(tol))
+        got = self._sets.get(key)
+        if got is None:
+            with span("htool.krylov.capture"):
+                got = self._sets[key] = _GraphedCG(A, M, b, tol, vdot, norm)
+            count("krylov_graph_captures")
+        return got
+
+
 def cg(
     A: Callable,
     b,
@@ -96,46 +280,47 @@ def cg(
     tol: float = 1e-6,
     maxiter: int = 200,
     mesh=None,
+    _graphs: Optional[CGGraphs] = None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradient for SPD/HPD operators.
 
     ``A`` and ``M`` map [n, k] -> [n, k].  Stops when every column satisfies
     ``||b - A x|| <= tol * ||b||``.  With ``mesh``, runs on per-partition
     vector slices (dots psum over the partitions; padded slice rows must be
-    zero).
+    zero).  ``_graphs`` (from :class:`..ddm.DDMSolver`, without ``mesh``):
+    the step replayed from CUDA graphs (:class:`CGGraphs`), where x0 is
+    absent or of b's dtype.
     """
-    _vdot_cols, _norm_cols, _ = _dots(mesh)
+    vdot, norm, _ = _dots(mesh)
     b, x, squeeze = _rhs(b, x0)
     M = M or _identity
 
-    bnorm = _norm_cols(b)
-    bnorm = torch.where(bnorm == 0, 1.0, bnorm)
+    graphed = _graphs is not None and x.dtype == b.dtype
+    if graphed:
+        g = _graphs.runner(A, M, b, tol, vdot, norm)
+        s = g.state
+        s.b.copy_(b)
+        s.x.copy_(x)
+        g.start.replay()
+        step = g.run_step
+    else:
+        s = _CGState(b, x if x0 is None else x.clone())
+        start, segments = _cg_body(s, A, M, tol, vdot, norm)
+        start()
 
-    r = b - A(x)
-    z = M(r)
-    p = z
-    rz = _vdot_cols(r, z)
+        def step():
+            for _, fn in segments:
+                fn()
+
     it = 0
-    go = it < maxiter and _read(torch.any(_norm_cols(r) > tol * bnorm))
+    go = it < maxiter and _read(s.go)
     while go:
         with span("htool.krylov.step"):  # a step ends with the next one's stopping test
-            Ap = A(p)
-            pAp = _vdot_cols(p, Ap)
-            alpha = rz / torch.where(pAp == 0, 1.0, pAp)
-            # freeze converged columns
-            active = _norm_cols(r) > tol * bnorm
-            alpha = torch.where(active, alpha, 0.0)
-            x = x + alpha[None, :] * p
-            r = r - alpha[None, :] * Ap
-            z = M(r)
-            rz_new = _vdot_cols(r, z)
-            beta = rz_new / torch.where(rz == 0, 1.0, rz)
-            beta = torch.where(active, beta, 0.0)
-            p = z + beta[None, :] * p
-            rz = rz_new
+            step()
             it += 1
-            go = it < maxiter and _read(torch.any(_norm_cols(r) > tol * bnorm))
-    res = _read(torch.max(_norm_cols(r) / bnorm))
+            go = it < maxiter and _read(s.go)
+    res = _read(s.res)
+    x = s.x.clone() if graphed else s.x  # the static x is overwritten by the next solve
     out = x[:, 0] if squeeze else x
     return KrylovResult(out, it, res, res <= tol)
 

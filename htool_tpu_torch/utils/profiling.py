@@ -15,7 +15,9 @@ a ``record_function`` on the profiler's clock, and a record in memory that
 :func:`spans` returns.  With no profiler active a span site is one flag
 check and records nothing.  Counters (:func:`count`) are always on.  The
 recorder and the counters are one per process, like the kernel wrappers'
-launch counts, and spans nest in the order one thread opens them.
+launch counts, and spans nest in the order one thread opens them.  While
+the current CUDA stream is capturing a graph, spans are off: a capture does
+no work, and a CUDA event cannot be recorded into it.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 __all__ = ["device_trace", "Timer", "annotate", "span", "count", "counters", "spans", "clear",
-           "dropped", "self_times", "MAX_SPANS"]
+           "dropped", "self_times", "tallies", "add_tallies", "MAX_SPANS"]
 
 
 @contextlib.contextmanager
@@ -101,6 +103,52 @@ def _launches() -> int:
 
 def _totals() -> dict:
     return dict(_counters, launches=_launches())
+
+
+def _tallied() -> tuple:
+    """The functions that keep counts on themselves: the three kernel
+    wrappers (launches by dtype and by k, CUDA launches) and the product
+    (``matvec.products``)."""
+    from ..hmatrix.linalg import matvec
+    from ..ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
+    from ..ops.tiled_matvec import tiled_bucket_matvec
+
+    return tiled_bucket_matvec, dense_bucket_matvec, lr_bucket_matvec, matvec
+
+
+def tallies() -> dict:
+    """Every count the program keeps, flat: ``(None, name)`` for each
+    process counter (:func:`count`), ``(fn, attribute)`` for an int that a
+    wrapper or the product keeps on itself and ``(fn, attribute, key)`` for
+    an entry of such a dict of ints.  A CUDA graph that repeats work records
+    what its capture counted (the change of :func:`tallies`) and adds it at
+    each replay (:func:`add_tallies`)."""
+    out = {(None, name): n for name, n in _counters.items()}
+    for fn in _tallied():
+        for attr, v in vars(fn).items():
+            if isinstance(v, int):
+                out[(fn, attr)] = v
+            elif isinstance(v, dict):
+                out.update(((fn, attr, key), n) for key, n in v.items() if isinstance(n, int))
+    return out
+
+
+def add_tallies(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` times each count of ``delta`` (keys as :func:`tallies`
+    gives them) to the program's counts."""
+    for key, n in delta.items():
+        if key[0] is None:
+            count(key[1], sign * n)
+        elif len(key) == 2:
+            setattr(key[0], key[1], getattr(key[0], key[1]) + sign * n)
+        else:
+            d = getattr(key[0], key[1])
+            d[key[2]] = d.get(key[2], 0) + sign * n
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 class _Span:
@@ -177,8 +225,9 @@ def span(name: str, *, sync=None, device=None):
     give the record's ``device_us`` when :func:`spans` reads it; on the CPU
     ``device_us`` is the span's own duration.  ``sync`` (a tensor or a
     ``torch.device``): on, the span ends when that device has finished its
-    queued work."""
-    if not _profiler_on():
+    queued work.  While the current stream captures a CUDA graph the span is
+    off, profiler or not."""
+    if not _profiler_on() or _capturing():
         return _OFF
     return _Span(name, sync, device)
 
