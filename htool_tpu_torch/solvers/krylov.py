@@ -8,9 +8,10 @@ each iteration is a ``htool.krylov.step`` span, which ends with the next
 iteration's stopping test); the arithmetic is the reference's: per-column
 step sizes over multiple right-hand sides, left preconditioning, modified
 Gram-Schmidt, the same Givens convention, the preconditioned stopping test
-and a true final residual; for block GMRES the blocked Gram-Schmidt, the
-Gram-based QR
-through a shifted Cholesky factor and the least-squares residual per step.
+and a true final residual; for block GMRES the blocked Gram-Schmidt, a
+Gram-based QR that deflates columns a block has lost (``_block_qr``; the
+reference's shifted Cholesky breaks down there) and the least-squares
+residual per step, each spanned (``htool.krylov.orth``, ``htool.krylov.lstsq``).
 The reference's ``axis_name`` hook is ``mesh=``: under a
 :class:`..parallel.collectives.Mesh` the vectors are the per-partition
 slices ``[P_local·m, k]`` of the distributed solver, and every dot product
@@ -24,6 +25,7 @@ graphs captured from that body, the stopping test still read once a step.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -80,6 +82,14 @@ def _read(t):
     count("syncs")
     with span("htool.krylov.wait"):
         return t.item()
+
+
+def _read_list(t):
+    """``t.tolist()``: one host read of several device values, counted and
+    spanned as :func:`_read` does."""
+    count("syncs")
+    with span("htool.krylov.wait"):
+        return t.tolist()
 
 
 def _rhs(b, x0):
@@ -446,18 +456,68 @@ def _wide(dtype: torch.dtype) -> torch.dtype:
     return torch.complex128 if dtype.is_complex else torch.float64
 
 
+def _pivoted_cholesky(G, floor):
+    """``(F, pivots, kept, least)`` with G ≈ F Fᴴ for the Hermitian PSD G
+    [mu, mu]: column k of F belongs to ``pivots[k]``, the greatest
+    remaining diagonal of the Schur complement first; ``kept[k]`` whether
+    that pivot exceeds ``floor``; ``least`` the last pivot.  Pivots so taken
+    never grow, so ``least`` is the smallest, the kept steps come first,
+    and a step not kept leaves F's column zero.  Device arithmetic only, no
+    host read: a pivot is a device index, used to gather and scatter."""
+    mu = G.shape[0]
+    S = G.clone()
+    free = torch.ones(mu, dtype=torch.bool, device=G.device)
+    cols, pivots, kept = [], [], []
+    for _ in range(mu):
+        least, p = torch.max(torch.where(free, S.diagonal().real, -1.0), dim=0)
+        ok = least > floor
+        col = S.index_select(1, p.view(1))[:, 0]
+        # rows pivoted before stay exactly zero; a step not kept is all zero
+        col = col * torch.where(free & ok, torch.rsqrt(least), 0.0)
+        S = S - col[:, None] * col.conj()[None, :]
+        free = free.index_fill(0, p.view(1), False)
+        cols.append(col)
+        pivots.append(p)
+        kept.append(ok)
+    return torch.stack(cols, 1), torch.stack(pivots), torch.stack(kept), least
+
+
 def _block_qr(W, gram):
-    """Gram-based QR of the tall block W [n, mu]: W = Q R with R the
-    conjugate transpose of the Cholesky factor of Wᴴ W (``gram(W, W)``),
-    shifted by 1e-30 so the factor stays invertible when columns have
-    converged.  The Gram matrix is formed in W's dtype and factored in
-    double precision; R comes back in double."""
-    mu = W.shape[1]
-    G = gram(W, W).to(_wide(W.dtype))
-    L = torch.linalg.cholesky(G + 1e-30 * torch.eye(mu, dtype=G.dtype, device=G.device))
-    R = L.mH
-    Q = torch.linalg.solve_triangular(R.to(W.dtype), W, upper=True, left=False)  # W R⁻¹
-    return Q, R
+    """QR of the tall block W [n, mu] through Gram matrices alone (``gram``:
+    aᴴ b, summed over the partitions under a mesh), safe when W loses rank:
+    ``(Q, R, lost)`` with W ≈ Q R, Q in W's dtype with orthonormal columns
+    or zero ones, R [mu, mu] in double.
+
+    Two passes of CholeskyQR in double precision (``_wide``).  The first
+    scales W's columns to unit norm and factors their Gram matrix by a
+    pivoted Cholesky.  A remaining pivot is the squared sine between a
+    column and the span of those taken before it; below the double Gram's
+    resolution (mu times the larger of W's rounding squared and double
+    rounding over n-term sums) the column is deflated: its column of Q and
+    its row of R are zero.  The second pass factors the Gram matrix of the
+    kept columns again, which restores their orthogonality to double
+    rounding.  R is upper triangular up to the pivots' order of columns.
+
+    ``lost`` (a device bool): the block lost rank in its own precision, a
+    pivot below what a Gram matrix in W's dtype resolves (eps · √n, where a
+    Cholesky of that Gram fails) or a column deflated."""
+    n, mu = W.shape
+    small = _wide(W.dtype)
+    eps, root_n = torch.finfo(W.dtype).eps, math.sqrt(max(n, 1))
+    X = W.to(small)
+    G = gram(X, X)
+    d = torch.sqrt(G.diagonal().real)
+    ds = torch.where(d > 0, d, 1.0)
+    floor = mu * max(eps ** 2, torch.finfo(small).eps * root_n)
+    F, pivots, kept, least = _pivoted_cholesky(G / torch.outer(ds, ds), floor)
+    R1 = F.mH * d  # X ≈ Q1 R1
+    unit = torch.diag((~kept).to(small))  # keeps the factors invertible where not kept
+    T = F.mH.index_select(1, pivots) + unit  # upper triangular
+    Q1 = torch.linalg.solve_triangular(T, (X / ds).index_select(1, pivots), upper=True,
+                                       left=False) * kept
+    R2 = torch.linalg.cholesky_ex(gram(Q1, Q1) + unit).L.mH
+    Q = torch.linalg.solve_triangular(R2, Q1, upper=True, left=False)
+    return Q.to(W.dtype), R2 @ R1, (least < eps * root_n) | ~torch.all(kept)
 
 
 def _lstsq_residual(Hm, gm):
@@ -523,10 +583,12 @@ def block_gmres(
 
     it = 0
     res_now = float("inf")
+    lost_blocks = torch.zeros((), dtype=torch.int64, device=dev)  # see _block_qr
     while it < maxiter and res_now > tol:
         R0 = M(b - (Ax if Ax is not None else A(x))).to(dtype)
         Ax = None
-        V0, S = _block_qr(R0, gram)
+        V0, S, lost = _block_qr(R0, gram)
+        lost_blocks += lost
         V = torch.zeros((m + 1, n, mu), dtype=dtype, device=dev)
         V[0] = V0
         # block Hessenberg, flattened: block (i, j) at rows i·mu.., cols j·mu..
@@ -540,24 +602,31 @@ def block_gmres(
         while go:
             with span("htool.krylov.step"):
                 W = M(A(V[j])).to(dtype)
-                for i in range(j + 1):  # blocked modified Gram-Schmidt
-                    Hij = gram(V[i], W)
-                    W = W - V[i] @ Hij
-                    H[i * mu : (i + 1) * mu, j * mu : (j + 1) * mu] += Hij
-                Q, Rj = _block_qr(W, gram)
-                H[(j + 1) * mu : (j + 2) * mu, j * mu : (j + 1) * mu] = Rj
-                V[j + 1] = Q
+                with span("htool.krylov.orth", device=dev):
+                    for i in range(j + 1):  # blocked modified Gram-Schmidt
+                        Hij = gram(V[i], W)
+                        W = W - V[i] @ Hij
+                        H[i * mu : (i + 1) * mu, j * mu : (j + 1) * mu] += Hij
+                    Q, Rj, lost = _block_qr(W, gram)
+                    lost_blocks += lost
+                    H[(j + 1) * mu : (j + 2) * mu, j * mu : (j + 1) * mu] = Rj
+                    V[j + 1] = Q
                 it += 1
                 j += 1
-                _, r = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
+                with span("htool.krylov.lstsq", device=dev):
+                    _, r = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
                 res = r.to(bnorm.dtype) / bnorm
                 go = j < m and it < maxiter and _read(torch.any(res > tol))
 
-        Y, _ = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
+        with span("htool.krylov.lstsq", device=dev):
+            Y, _ = _lstsq_residual(H[: (j + 1) * mu, : j * mu], g[: (j + 1) * mu])
         x = x + torch.einsum("jnp,jpq->nq", V[:j], Y.view(j, mu, mu).to(dtype))
         res_now = _read(torch.max(_norm_cols(M(b - A(x))) / bnorm))
 
     tnorm = _norm_cols(b)
     tnorm = torch.where(tnorm == 0, 1.0, tnorm)
-    true_res = _read(torch.max(_norm_cols(b - A(x)) / tnorm))
+    # the tally of blocks that lost rank rides on the last read
+    true_res, n_lost = _read_list(torch.stack([torch.max(_norm_cols(b - A(x)) / tnorm),
+                                               lost_blocks.to(tnorm.dtype)]))
+    count("krylov_block_rank_deficient", int(n_lost))
     return KrylovResult(x, it, true_res, res_now <= tol)
