@@ -59,13 +59,15 @@ struct BucketAddr {
   __device__ __forceinline__ long long out(int, int b, int lo) const {
     return (out_off ? out_off[b] - out_root : (long long)b * r_pad) + lo;
   }
+  __device__ __forceinline__ int rows(int, int R) const { return R; }  // whole blocks
+  __device__ __forceinline__ int cols(int, int C) const { return C; }
   __device__ __forceinline__ void check(long long io, int in_w, long long oo, int out_w) const {
     if (io < 0 || io + in_w > in_rows || oo < 0 || oo + out_w > out_rows) __trap();
   }
 };
 
 template <typename S, int KC, bool TRANS, bool MMA>
-__global__ void __launch_bounds__(NT, CTAS_PER_SM)
+__global__ void __launch_bounds__(NT, (CTAS_PER_SM<S, KC>))
 bucket_stream_kernel(StreamGeom g, const S* A, int cj, int store, BucketAddr addr, int G,
                      const S* x, int k, S* y) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -85,10 +87,11 @@ int stage(int cj, int store, const void* A, int nb, int R, int C, int P, int cut
   addr.total = nb * P;
   return with_loop<S, KC>(g, [&](auto mma) {
     constexpr auto kernel = bucket_stream_kernel<S, KC, TRANS, decltype(mma)::value>;
-    if (int err = configure_stream_kernel<kernel>()) return err;
+    if (int err = configure_stream_kernel<kernel, STREAM_SMEM<S, KC>>()) return err;
     dim3 grid((addr.total + G - 1) / G, (k + KC - 1) / KC);
-    kernel<<<grid, NT, STREAM_SMEM, stream>>>(g, static_cast<const S*>(A), cj, store, addr, G,
-                                              static_cast<const S*>(x), k, static_cast<S*>(y));
+    kernel<<<grid, NT, STREAM_SMEM<S, KC>, stream>>>(
+        g, static_cast<const S*>(A), cj, store, addr, G, static_cast<const S*>(x), k,
+        static_cast<S*>(y));
     return (int)cudaGetLastError();
   });
 }

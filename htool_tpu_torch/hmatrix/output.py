@@ -122,6 +122,11 @@ def _pack_plan(payload: dict, key: str, plan: TilePlan) -> None:
     payload[f"{key}_aux"] = np.array([int(getattr(plan, a)) for a in _PLAN_AUX], np.int64)
     for name in _PLAN_INTS:
         payload[f"{key}_{name}"] = _host(getattr(plan, name))
+    # the live extents (dense plans over buckets that know their sizes)
+    if plan.ext is not None:
+        payload[f"{key}_ext"] = _host(plan.ext)
+        payload[f"{key}_ext_max"] = np.array(plan.ext_max, np.int64)
+    payload[f"{key}_read_bytes"] = np.array(plan.read_bytes, np.int64)
 
 
 def _pack_plans(payload: dict, prefix: str, bucket) -> None:
@@ -142,6 +147,11 @@ def _unpack_plan(z, key: str, blocks: dict, device) -> TilePlan:
     aux = dict(zip(_PLAN_AUX, (int(a) for a in z[f"{key}_aux"])))  # older files: no P
     aux["trans"] = bool(aux["trans"])
     ints = {name: torch.as_tensor(z[f"{key}_{name}"], device=device) for name in _PLAN_INTS}
+    if f"{key}_ext" in z:  # older files: no extents, whole blocks
+        ints["ext"] = torch.as_tensor(z[f"{key}_ext"], device=device)
+        aux["ext_max"] = tuple(int(a) for a in z[f"{key}_ext_max"])
+    if f"{key}_read_bytes" in z:
+        aux["read_bytes"] = tuple(int(a) for a in z[f"{key}_read_bytes"])
     return TilePlan(**blocks, **aux, **ints)
 
 

@@ -51,11 +51,15 @@ def panels(ext: int, P: int, cut: int):
     return out
 
 
-def cut_rule(nb: int, R: int, C: int, itemsize: int, trans: bool) -> Cut:
+def cut_rule(nb: int, R: int, C: int, itemsize: int, trans: bool,
+             live_share: float = 1.0) -> Cut:
     """The cut of a bucket of ``nb`` row-major matrices ``[R, C]`` applied as
-    stored or transposed."""
+    stored or transposed.  ``live_share`` (0 < share <= 1) is the share of
+    the stored bytes that a launch streams: a planned launch reads each
+    block at its live extent (its true rows, columns and rank), so the
+    byte targets are met in the bytes it reads, not in the padded ones."""
     ext = C if trans else R  # output dimension
-    line = (R if trans else C) * itemsize  # bytes per output row
+    line = max(1, int((R if trans else C) * itemsize * live_share))  # bytes read per output row
     total = max(1, nb) * ext * line
     tgt = max(_MIN_BYTES, min(_TARGET_BYTES, total // _FILL_CTAS))
     cut = max(1, tgt // line)

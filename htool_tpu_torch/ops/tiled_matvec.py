@@ -42,6 +42,18 @@ Hopper differences (no VMEM, no sequential grid):
   the rule's panels: the last one is clipped, never padded.
   :func:`..hmatrix.linalg.prepare_tiled_matvec` picks the one-launch or
   the split plan per bucket by :func:`.cut.lr_split_wanted`.
+- A dense plan (a dense bucket, or either stage of a split plan) carries
+  each slot's *live extent*: the true rows and columns of the matrix the
+  slot streams, as stored (``ext``; a dense block's true sizes, a factor's
+  true sizes and rank).  Storage pads every block of a bucket to one shape
+  and one power-of-two rank, with exact zeros; the kernel walks only the
+  live extent, so it neither reads nor multiplies the padding, and a
+  stage-A row past a block's rank is never written nor read.  The cut
+  meets its byte targets in the live bytes (``live_share``).  A plan over a
+  bucket without sizes or ranks has no extents and streams whole blocks.
+  ``read_bytes`` is what one launch streams from the blocks (each live
+  row's run rounded up to 32-byte sectors); each term adds its launches'
+  to the process counter ``product_read_bytes``.
 - Complex buckets need no plane plans.  The reference splits a complex64
   bucket into real and imaginary planes (``ComplexPlans``,
   ``apply_complex_plans``: 2 launches per dense term, 4 per low-rank term,
@@ -85,6 +97,8 @@ _GROUP_LR = 4  # slots per step of a one-launch low-rank plan
 _TILE_ROWS = 256  # default T (see the module note)
 _REF_CHUNK_BYTES = 1 << 28  # block data gathered per pass by the plain version
 _STAGE_B_CHUNK = 2048  # widest output chunk of a stage-B plan entry
+_SECTOR = 32  # bytes of a device-memory sector: a row's run is read in whole sectors
+_READ_ITEMS = (4, 8, 16)  # block itemsizes a plan counts its read bytes for
 
 
 @dataclass
@@ -122,10 +136,25 @@ class TilePlan:
     out_off: Optional[torch.Tensor] = None  # [n_steps*G] int32 (tile_of·T + out_rel)
     tile_of: Optional[torch.Tensor] = None  # [n_steps] int32
     first_of: Optional[torch.Tensor] = None  # [n_steps] int32 (1 = first step of its tile)
+    # [n_steps*G, 2] int32: live rows and columns of each slot's matrix as
+    # stored (0, 0 for padding); None: whole blocks
+    ext: Optional[torch.Tensor] = None
+    ext_max: tuple = ()  # (rows, cols): the largest live extent over the slots
+    read_bytes: tuple = ()  # bytes a launch streams, for block itemsizes _READ_ITEMS
 
     @property
     def dtype(self) -> torch.dtype:
         return (self.data if self.kind == "dense" else self.U).dtype
+
+    def streamed_bytes(self) -> int:
+        """Bytes one launch of the plan streams from its blocks at their
+        dtype: every slot's live extent, each row's run in whole 32-byte
+        sectors (whole blocks for a plan without extents)."""
+        item = (self.data if self.kind == "dense" else self.U).element_size()
+        if self.read_bytes:
+            return self.read_bytes[_READ_ITEMS.index(item)]
+        blocks = [self.data] if self.kind == "dense" else [self.U, self.V]
+        return sum(b.numel() * b.element_size() for b in blocks)
 
     @property
     def cut(self) -> int:
@@ -206,8 +235,14 @@ def build_tile_plan(bucket, out_side: str, out_len: int,
     t_off = torch.as_tensor(bucket.t_off).cpu().numpy().astype(np.int64)
     s_off = torch.as_tensor(bucket.s_off).cpu().numpy().astype(np.int64)
     nb = t_off.shape[0]
+    live = _live_extent(bucket, nb) if is_dense else None
     if is_dense:
-        P, cut, G = cut_rule(nb, bm, bn, blocks.element_size(), trans)
+        share = 1.0
+        if live is not None and nb:
+            item = blocks.element_size()
+            share = _block_bytes(*live, item).sum() / _block_bytes(
+                np.full(nb, bm), np.full(nb, bn), item).sum()
+        P, cut, G = cut_rule(nb, bm, bn, blocks.element_size(), trans, share)
         if max_cut is not None and cut > max_cut:
             P = -(-ext // max_cut)
             cut = -(-ext // P)
@@ -260,19 +295,67 @@ def build_tile_plan(bucket, out_side: str, out_len: int,
         blk=i32(blk), in_off=i32(in_off_p), out_rel=i32(out_rel),
         out_off=i32(out_off_p), tile_of=i32(tile_of), first_of=i32(first_of),
     )
-    if is_dense:
-        return TilePlan(kind="dense", data=bucket.data, **kw)
-    return TilePlan(kind="lr", U=bucket.U, V=bucket.V, **kw)
+    if not is_dense:
+        per = bm * bucket.U.shape[2] + bucket.V.shape[1] * bn  # U and V, whole
+        kw["read_bytes"] = tuple(nb * per * item for item in _READ_ITEMS)
+        return TilePlan(kind="lr", U=bucket.U, V=bucket.V, **kw)
+    rows, cols = live if live is not None else (np.full(nb, bm), np.full(nb, bn))
+    kw["read_bytes"] = tuple(int(_panel_bytes(rows, cols, P, cut, trans, item).sum())
+                             for item in _READ_ITEMS)
+    if live is not None:
+        ext_p = np.zeros((n_steps * G, 2), np.int64)
+        ext_p[slot] = np.stack([rows, cols], axis=1)[order // P]
+        kw["ext"] = i32(ext_p)
+        kw["ext_max"] = (int(rows.max(initial=0)), int(cols.max(initial=0)))
+    return TilePlan(kind="dense", data=bucket.data, **kw)
+
+
+def _live_extent(bucket, nb: int):
+    """(rows, cols) int64 [nb]: the true rows and columns of each block's
+    matrix as stored, clipped to the storage, or None where the bucket does
+    not know them.  A dense bucket's are its ``t_sizes`` and ``s_sizes``; a
+    factor of a low-rank bucket's (:class:`_DenseStand`) its sizes and rank."""
+    got = (getattr(bucket, "live", None) if isinstance(bucket, _DenseStand)
+           else (getattr(bucket, "t_sizes", None), getattr(bucket, "s_sizes", None)))
+    if got is None or any(a is None for a in got):
+        return None
+    bm, bn = bucket.block_shape
+    rows, cols = (np.asarray(a, np.int64).reshape(-1) for a in got)
+    if rows.shape != (nb,) or cols.shape != (nb,):
+        return None
+    return np.clip(rows, 0, bm), np.clip(cols, 0, bn)
+
+
+def _block_bytes(rows, cols, item: int) -> np.ndarray:
+    """Bytes of row-major matrices read at ``rows`` x ``cols``: each row's
+    run in whole 32-byte sectors."""
+    run = -(-np.asarray(cols, np.int64) * item // _SECTOR) * _SECTOR
+    return np.asarray(rows, np.int64) * run
+
+
+def _panel_bytes(rows, cols, P: int, cut: int, trans: bool, item: int) -> np.ndarray:
+    """Bytes a launch streams per block, panel by panel: row panels of the
+    live rows (as stored), or column slabs of the live columns (transposed),
+    each slab's row segment a run of its own."""
+    rows, cols = np.asarray(rows, np.int64), np.asarray(cols, np.int64)
+    lo = np.arange(P, dtype=np.int64)[:, None] * cut
+    if trans:
+        width = np.clip(np.minimum(lo + cut, cols) - lo, 0, None)
+        return _block_bytes(rows, width, item).sum(axis=0)
+    height = np.clip(np.minimum(lo + cut, rows) - lo, 0, None)
+    return _block_bytes(height, cols, item).sum(axis=0)
 
 
 class _DenseStand:
     """Minimal dense-bucket stand-in for build_tile_plan: one factor of a
-    low-rank bucket with the offsets of one stage."""
+    low-rank bucket with the offsets of one stage, and its live extent
+    ``(rows, cols)`` per block (None: unknown)."""
 
-    def __init__(self, data, t_off, s_off):
+    def __init__(self, data, t_off, s_off, live=None):
         self.data = data
         self.t_off = t_off
         self.s_off = s_off
+        self.live = live
 
     @property
     def block_shape(self):
@@ -302,15 +385,20 @@ def build_tile_plan_lr_split(bucket, out_side: str, out_len: int,
     bn = int(bucket.V.shape[2])
     r_pad = staging_rows(r)
     mid_off = torch.arange(nb, dtype=torch.int64) * r_pad
+    sizes = (getattr(bucket, "t_sizes", None), getattr(bucket, "s_sizes", None),
+             getattr(bucket, "ranks", None))
+    t_sz, s_sz, rank = sizes if all(a is not None for a in sizes) else (None,) * 3
+    u_live, v_live = ((t_sz, rank), (rank, s_sz)) if rank is not None else (None, None)
     if out_side == "t":
         # t = V x (V as stored), y += U t (U as stored)
-        stage_a = _DenseStand(bucket.V, t_off=mid_off, s_off=bucket.s_off)
-        stage_b = _DenseStand(bucket.U, t_off=bucket.t_off, s_off=mid_off)
+        stage_a = _DenseStand(bucket.V, t_off=mid_off, s_off=bucket.s_off, live=v_live)
+        stage_b = _DenseStand(bucket.U, t_off=bucket.t_off, s_off=mid_off, live=u_live)
         width = bm
     else:
-        # t = Uᵀ x, y += Vᵀ t (both applied transposed)
-        stage_a = _DenseStand(bucket.U, t_off=bucket.t_off, s_off=mid_off)
-        stage_b = _DenseStand(bucket.V, t_off=mid_off, s_off=bucket.s_off)
+        # t = Uᵀ x, y += Vᵀ t (both applied transposed); a row of t past a
+        # block's rank is written by neither stage A nor read by stage B
+        stage_a = _DenseStand(bucket.U, t_off=bucket.t_off, s_off=mid_off, live=u_live)
+        stage_b = _DenseStand(bucket.V, t_off=mid_off, s_off=bucket.s_off, live=v_live)
         width = bn
     widest = max(hi - lo for lo, hi in _chunk_stand_width(width))
     plan_a = build_tile_plan(stage_a, out_side, nb * r_pad, tile_rows)
@@ -360,6 +448,7 @@ def _plain_dense(plan: TilePlan, x_pad: torch.Tensor, conj: bool) -> torch.Tenso
     ar_in = torch.arange(plan.in_w, device=dev)
     bm, bn = plan.data.shape[1], plan.data.shape[2]
     ext = bn if plan.trans else bm
+    live = None if plan.ext is None else plan.ext.to(dev).long()
     for p, (lo, hi) in enumerate(panels(ext, plan.P, plan.out_w)):
         sel = torch.nonzero((blk >= 0) & (blk % plan.P == p)).flatten()
         b = blk[sel] // plan.P
@@ -372,6 +461,12 @@ def _plain_dense(plan: TilePlan, x_pad: torch.Tensor, conj: bool) -> torch.Tenso
             bc = b[c0 : c0 + step]
             xg = x_pad[io[c0 : c0 + step, None] + ar_in]  # [c, in_w, k]
             D = plan.data[bc, :, lo:hi] if plan.trans else plan.data[bc, lo:hi]
+            if live is not None:  # the slots' live extents: nothing past them is read
+                er, ec = live[sel[c0 : c0 + step]].unbind(1)
+                r_ix = torch.arange(D.shape[1], device=dev) + (0 if plan.trans else lo)
+                c_ix = torch.arange(D.shape[2], device=dev) + (lo if plan.trans else 0)
+                keep = (r_ix < er[:, None])[:, :, None] & (c_ix < ec[:, None])[:, None, :]
+                D = torch.where(keep, D, torch.zeros((), dtype=D.dtype, device=dev))
             D = D.to(x_pad.dtype)
             if conj:
                 D = D.conj()
@@ -437,7 +532,7 @@ def _launch_args(plan: TilePlan, device, dtype):
     if cached is not None and cached[0] == (device, dtype):
         return cached[1]
     blocks = [plan.data] if plan.kind == "dense" else [plan.U, plan.V]
-    ints = [plan.blk, plan.in_off, plan.out_off]
+    ints = [plan.blk, plan.in_off, plan.out_off] + ([] if plan.ext is None else [plan.ext])
     for t in blocks + ints:
         if t.device != device or not t.is_contiguous():
             raise ValueError("tiled_bucket_matvec: plan tensors must be contiguous "
@@ -454,7 +549,9 @@ def _launch_args(plan: TilePlan, device, dtype):
         nb, R, C = (int(s) for s in plan.data.shape)
         fn = entry_point("htool_stream_matvec", dtype)
         head = (int(plan.trans),)
-        mid = (plan.data.data_ptr(), R, C, int(plan.P), int(plan.out_w), *ptrs,
+        ext = None if plan.ext is None else plan.ext.data_ptr()  # None: whole blocks
+        lR, lC = plan.ext_max if plan.ext is not None and plan.ext_max else (R, C)
+        mid = (plan.data.data_ptr(), R, C, int(plan.P), int(plan.out_w), lR, lC, *ptrs, ext,
                int(plan.n_steps) * int(plan.G), int(plan.G))
     else:
         bm, r, bn = plan.U.shape[1], plan.U.shape[2], plan.V.shape[2]
@@ -495,7 +592,12 @@ def tiled_bucket_matvec(plan, x_pad: torch.Tensor,
     ``tiled_bucket_matvec.launches_by_dtype[dtype]``; the CUDA launches it
     makes (two for a split plan) add to ``tiled_bucket_matvec.cuda_launches``;
     a term on the CPU adds one to the process counter ``plain_calls``
-    (:func:`..utils.profiling.count`)."""
+    (:func:`..utils.profiling.count`).  Every term adds the bytes its
+    launches stream from the blocks (:meth:`TilePlan.streamed_bytes`, by
+    the plan: the plain version reads the same live extents) to the process
+    counter ``product_read_bytes``."""
+    count("product_read_bytes", sum(p.streamed_bytes() for p in plan)
+          if isinstance(plan, SplitPlan) else plan.streamed_bytes())
     if x_pad.device.type == "cpu":
         count("plain_calls")
         return tiled_bucket_matvec_reference(plan, x_pad, out, conj)

@@ -9,4 +9,5 @@ from .kernels import (
     laplace_kernel_symmetric,
 )
 from .gmsh import load_gmsh_nodes
+from .padding import fill_padding
 from .problems import grid_laplacian

@@ -102,7 +102,9 @@ def _launches() -> int:
 
 
 def _totals() -> dict:
-    return dict(_counters, launches=_launches())
+    from ..hmatrix.linalg import matvec
+
+    return dict(_counters, launches=_launches(), products=matvec.products)
 
 
 def _tallied() -> tuple:
@@ -217,8 +219,9 @@ def span(name: str, *, sync=None, device=None):
     enclosing span's id, or None), ``root`` (the outermost enclosing span's
     id, its own for a root) and ``t0``/``t1`` (``time.perf_counter_ns``).  A
     root span also records ``counters``: the change of every process counter
-    (:func:`count`) across it, and ``launches``, that of the CUDA launches
-    of the three kernel wrappers.
+    (:func:`count`) across it, ``launches``, that of the CUDA launches
+    of the three kernel wrappers, and ``products``, that of the H-matrix
+    products (``matvec.products``).
 
     ``device`` (a tensor or a ``torch.device``): the device that does the
     span's work.  On a CUDA device two CUDA events on its current stream

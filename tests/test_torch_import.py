@@ -45,6 +45,7 @@ SLICE = [
     "htool_tpu_torch.native",
     "htool_tpu_torch.clustering.io",
     "htool_tpu_torch.testing.gmsh",
+    "htool_tpu_torch.testing.padding",
     "htool_tpu_torch.utils.profiling",
     "htool_tpu_torch.hmatrix.blr",
     "htool_tpu_torch.hmatrix.blr2",
