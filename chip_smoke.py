@@ -13,9 +13,8 @@ Phases (each prints one JSON line):
    float32, float64, complex64 and complex128 (no one-launch dense entry
    point may be left in the library); then the device rule: an
    H-matrix built from NumPy points with no ``device`` must lie on the card
-   (n = 2,000; with plans attached its low-rank buckets, too short for two
-   stages, run the one-launch planned kernel, held against the unplanned
-   product);
+   (n = 2,000; with plans attached, every low-rank bucket on its split
+   two-stage plan, held against the unplanned product);
 3. main path — sphere → cluster tree and block plan from the native C++
    planner (the default; the library must build, and both must come from
    it) → H-matrix (f32, Laplace kernel, leaf
@@ -33,7 +32,7 @@ Phases (each prints one JSON line):
 4. kernel vs plain — every bucket term of that H-matrix, both
    orientations, k = 1 and 8, f32 and f64, against the plain PyTorch
    version on the same CUDA tensors; every low-rank bucket through its
-   one-launch plan and through its split two-stage plan, both timed;
+   split two-stage plan, timed;
 5. kernel edges — the same comparison on random buckets with shapes the
    flagship does not reach: ranks above 64, non-square and 6272-wide
    blocks, odd widths with rank 99 (no 16-byte alignment: the element-wise
@@ -54,8 +53,7 @@ Phases (each prints one JSON line):
 8. unplanned kernels vs plain — every bucket term of that H-matrix and of
    one block row, both orientations, k = 1 and 8, f32 and f64 (every dense
    term through the streaming dense kernel, float64 on the FP64 tensor
-   cores at k = 8; every low-rank term through the one-launch and the
-   two-stage kernel), and the random buckets of phase 5's edge shapes with
+   cores at k = 8; every low-rank term through the two-stage kernel), and the random buckets of phase 5's edge shapes with
    root offsets (dense blocks cut into panels and slabs: 224² and 256²;
    odd widths without 16-byte alignment; k = 1, 2, 3, 5, 8, 11);
 9. compressors — full ACA, SVD and partial ACA with SVD recompression at
@@ -449,7 +447,6 @@ def main(argv=None) -> int:
         lr_bucket_matvec,
         lr_bucket_matvec_reference,
     )
-    from htool_tpu_torch.ops.cut import lr_split_wanted
     from htool_tpu_torch.ops.tiled_matvec import (
         SplitPlan,
         build_tile_plan,
@@ -606,25 +603,25 @@ def main(argv=None) -> int:
             and all(b.U.is_cuda and b.V.is_cuda for b in H0.lr_buckets),
             "NumPy input with no device did not land on the GPU")
     require(launched0 > 0 and err0 < 1e-3, f"device rule: launches {launched0}, rel {err0:.3e}")
-    # the same small operator with plans: its low-rank buckets are too short
-    # for a second launch to pay (ops/cut.py::lr_split_wanted), so this is the
-    # user's path through the one-launch planned kernel
+    # the same small operator with plans: every low-rank bucket, however
+    # short, on its split plan (two CUDA launches a term)
     x0k = torch.as_tensor(np.random.RandomState(args.seed + 1).randn(2000, 8), device=dev)
     y0u = matvec(H0, x0k)
     prepare_tiled_matvec(H0)
-    n_one0 = sum(not isinstance(b.plan_t, SplitPlan) for b in H0.lr_buckets)
+    n_split0 = sum(isinstance(b.plan_t, SplitPlan) for b in H0.lr_buckets)
     n_terms0 = len(H0.dense_buckets) + len(H0.lr_buckets)
     reset_counts()
     y0p = matvec(H0, x0k)
     torch.cuda.synchronize()
     rel0 = float(torch.linalg.norm(y0p - y0u) / torch.linalg.norm(y0u))
     emit(dict(phase="small_planned_path", n=2000, dtype=str(H0.dtype), bucket_terms=n_terms0,
-              one_launch_plans=n_one0, launches=tiled_bucket_matvec.launches,
+              split_plans=n_split0, launches=tiled_bucket_matvec.launches,
               cuda_launches=tiled_bucket_matvec.cuda_launches, planned_vs_unplanned_rel=rel0))
-    require(n_one0 > 0 and tiled_bucket_matvec.launches == n_terms0
-            and tiled_bucket_matvec.cuda_launches == n_terms0 + len(H0.lr_buckets) - n_one0,
-            f"small planned path: {n_one0} one-launch plans, {tiled_bucket_matvec.launches} terms "
-            f"launched of {n_terms0}, {tiled_bucket_matvec.cuda_launches} CUDA launches")
+    require(n_split0 == len(H0.lr_buckets) > 0 and tiled_bucket_matvec.launches == n_terms0
+            and tiled_bucket_matvec.cuda_launches == n_terms0 + n_split0,
+            f"small planned path: {n_split0} split plans of {len(H0.lr_buckets)}, "
+            f"{tiled_bucket_matvec.launches} terms launched of {n_terms0}, "
+            f"{tiled_bucket_matvec.cuda_launches} CUDA launches")
     require(rel0 <= 1e-12 if H0.dtype == torch.float64 else rel0 <= 1e-5,
             f"small planned path: planned against unplanned rel {rel0:.3e}")
     del H0, gen0, A0, y0, x0, x0k, y0u, y0p
@@ -758,10 +755,8 @@ def main(argv=None) -> int:
         split_plans=sum(isinstance(b.plan_t, SplitPlan) for b in H.lr_buckets),
     ))
     n_split = sum(isinstance(b.plan_t, SplitPlan) for b in H.lr_buckets)
-    require(all(isinstance(b.plan_t, SplitPlan) == lr_split_wanted(
-                b.n_blocks, *b.block_shape, b.rank_padded, b.U.element_size())
-                for b in H.lr_buckets),
-            "prepare_tiled_matvec: a low-rank bucket's plan is not the rule's")
+    require(n_split == len(H.lr_buckets),
+            "prepare_tiled_matvec: a low-rank bucket has no split plan")
     require(cuda_launches == (terms + n_split) * products,
             f"CUDA launches {cuda_launches} != (terms {terms} + split plans {n_split}) x "
             f"products {products}")
@@ -818,14 +813,12 @@ def main(argv=None) -> int:
     m_pad = H.shape[0] + linalg._pad_in_of(H)
     rows, worst = [], {}
 
-    def compare(plan, xp, what, conj=False, main=True, ref_plan=None):
-        """Kernel vs plain version on the same CUDA tensors (the plain
-        version of ``ref_plan`` when given: a split plan is also held against
-        the one-launch plan's plain version): the relative error; a
-        main-path term's largest absolute error goes to its entry point's
-        row."""
+    def compare(plan, xp, what, conj=False, main=True):
+        """Kernel vs plain version on the same CUDA tensors: the relative
+        error; a main-path term's largest absolute error goes to its entry
+        point's row."""
         yk = tiled_bucket_matvec(plan, xp, conj=conj)
-        yr = tiled_bucket_matvec_reference(ref_plan or plan, xp, conj=conj)
+        yr = tiled_bucket_matvec_reference(plan, xp, conj=conj)
         sync()
         require(bool(torch.isfinite(yk).all()), f"non-finite kernel output {what}")
         rel = float(torch.linalg.norm(yk - yr) / torch.linalg.norm(yr).clamp_min(1e-300))
@@ -839,16 +832,11 @@ def main(argv=None) -> int:
         return rel
 
     def routes_of(bucket, side, out_len):
-        """Every plan a bucket term can run through: one route for a dense
-        bucket, the one-launch and the split plan for a low-rank one; and
-        the name of the route prepare_tiled_matvec picks."""
+        """The plan of a bucket term under the name of its route (a dense
+        plan, or a low-rank bucket's split plan), and that name."""
         if isinstance(bucket, ht.DenseBucket):
             return {"dense": build_tile_plan(bucket, side, out_len)}, "dense"
-        picked = "split" if lr_split_wanted(bucket.n_blocks, *bucket.block_shape,
-                                            bucket.rank_padded,
-                                            bucket.U.element_size()) else "one_launch"
-        return {"one_launch": build_tile_plan(bucket, side, out_len),
-                "split": build_tile_plan_lr_split(bucket, side, out_len)}, picked
+        return {"split": build_tile_plan_lr_split(bucket, side, out_len)}, "split"
 
     def time_tiled(routes, picked, bucket, side, xp, conj=False):
         """ms of every route of one planned term and of the plain version;
@@ -881,13 +869,11 @@ def main(argv=None) -> int:
                 routes, picked = routes_of(bk, side, m_pad)
                 if dtype == torch.float32:  # the main path's own plan for the picked route
                     routes[picked] = getattr(bucket, f"plan_{side}")
-                ref_plan = next(iter(routes.values()))
                 for k in (1, 8):
                     xp = torch.randn((m_pad, k), dtype=dtype, device=dev)
                     for route, plan in routes.items():
                         key = (str(dtype), side, k, route)
-                        rel = compare(plan, xp, f"bucket {bi} {key}", ref_plan=ref_plan,
-                                      main=route == picked)
+                        rel = compare(plan, xp, f"bucket {bi} {key}", main=route == picked)
                         worst[key] = max(worst.get(key, 0.0), rel)
                     if side == "t":  # the main path's orientation
                         ms, tp = time_tiled(routes, picked, bk, side, xp)
@@ -901,7 +887,7 @@ def main(argv=None) -> int:
                             route=picked, route_ms=ms, kernel_ms=ms[picked], plain_ms=tp,
                         ))
             # the loop's names would keep the last float64 copy alive to phase 13
-            del bk, routes, plan, ref_plan
+            del bk, routes, plan
     max_abs_err = stats[("tiled_bucket_matvec", torch.float32)]["max_abs_err"]
     emit(dict(phase="kernel_vs_plain", tolerance_rel=dict(float32=1e-5, float64=1e-12),
               worst_rel={"/".join(map(str, k)): v for k, v in sorted(worst.items())},
@@ -948,15 +934,13 @@ def main(argv=None) -> int:
                                                 V=randn(nb, r, bn, dtype=dtype), **offs))
                 for side in ("t", "s"):
                     routes, _ = routes_of(bucket, side, L)
-                    ref_plan = next(iter(routes.values()))
                     for conj in conjs:
                         for k in EDGE_KS:
                             xp = randn(L, k, dtype=dtype)
                             for route, plan in routes.items():
                                 key = f"{dtype}/{side}/conj{int(conj)}/{route}/{bm}x{bn}r{r}"
                                 worst_of[key] = max(worst_of.get(key, 0.0), compare(
-                                    plan, xp, f"{key} k={k}", conj=conj, main=False,
-                                    ref_plan=ref_plan))
+                                    plan, xp, f"{key} k={k}", conj=conj, main=False))
                 del bucket, routes
         return worst_of
 
@@ -1111,44 +1095,33 @@ def main(argv=None) -> int:
                     conj=h.dtype.is_complex and mode in ("C", "conj"), out_len=out_len,
                     in_root=in_root, out_root=out_root)
 
-    def run_term(fn, blocks, xp, kw, split=None):
-        extra = {} if split is None else dict(split=split)  # lr_bucket_matvec's route
+    def run_term(fn, blocks, xp, kw):
         return fn(*blocks, kw["in_off"], kw["out_off"], xp, kw["trans"], kw["out_len"],
-                  in_root=kw["in_root"], out_root=kw["out_root"], conj=kw.get("conj", False),
-                  **extra)
+                  in_root=kw["in_root"], out_root=kw["out_root"], conj=kw.get("conj", False))
 
     def compare_term(kernel, plain, blocks, xp, kw, what, main=True):
-        """Kernel vs plain version of one unplanned term; a low-rank term
-        also through its one-launch and its two-stage kernel, whichever the
-        wrapper's rule picks.  Returns the worst relative error."""
+        """Kernel vs plain version of one unplanned term: the relative error."""
         yr = run_term(plain, blocks, xp, kw)
-        worst_r = 0.0
-        for split in ((None, False, True) if kernel is lr_bucket_matvec else (None,)):
-            yk = run_term(kernel, blocks, xp, kw, split)
-            sync()
-            require(bool(torch.isfinite(yk).all()), f"non-finite kernel output {what}")
-            r = float(torch.linalg.norm(yk - yr) / torch.linalg.norm(yr).clamp_min(1e-300))
-            require(r <= tol_rel[xp.dtype], f"{what} split={split}: rel {r:.3e}")
-            worst_r = max(worst_r, r)
-            if main and split is None:
-                st = stat(kernel.__name__, xp.dtype)
-                st["max_abs_err"] = max(st["max_abs_err"], float((yk - yr).abs().max()))
-        return worst_r
+        yk = run_term(kernel, blocks, xp, kw)
+        sync()
+        require(bool(torch.isfinite(yk).all()), f"non-finite kernel output {what}")
+        r = float(torch.linalg.norm(yk - yr) / torch.linalg.norm(yr).clamp_min(1e-300))
+        require(r <= tol_rel[xp.dtype], f"{what}: rel {r:.3e}")
+        if main:
+            st = stat(kernel.__name__, xp.dtype)
+            st["max_abs_err"] = max(st["max_abs_err"], float((yk - yr).abs().max()))
+        return r
 
     def time_term(kernel, plain, blocks, xp, kw):
-        """(kernel ms, plain ms, ms by route) of one unplanned term; at k = 8
-        and k = 1 the term is added to its entry point's sums."""
+        """(kernel ms, plain ms) of one unplanned term; at k = 8 and k = 1 the
+        term is added to its entry point's sums."""
         tk = event_ms(lambda: run_term(kernel, blocks, xp, kw))
         tp = event_ms(lambda: run_term(plain, blocks, xp, kw))
-        by_route = {}
-        if kernel is lr_bucket_matvec:
-            by_route = {name: event_ms(lambda sp=sp: run_term(kernel, blocks, xp, kw, sp))
-                        for name, sp in (("one_launch", False), ("two_stage", True))}
         if xp.shape[1] in (1, 8):
             bm, bn = blocks[0].shape[1], blocks[-1].shape[2]
             account(kernel.__name__, blocks, xp, kw["out_len"], kw["in_off"] - kw["in_root"],
                     bm if kw["trans"] else bn, kw["trans"], kw.get("conj", False), tk, tp)
-        return tk, tp, by_route
+        return tk, tp
 
     u_worst = {}
     u_total = {(bkind, k, w): 0.0 for bkind in ("dense", "lr") for k in (1, 8)
@@ -1172,7 +1145,7 @@ def main(argv=None) -> int:
                                          f"{name} op {op} bucket {bi} {key}")
                         u_worst[key] = max(u_worst.get(key, 0.0), r)
                         if name == "H" and op == "N":  # the terms of H @ x
-                            tk, tp, by_route = time_term(kernel, plain, blocks, xp, kw)
+                            tk, tp = time_term(kernel, plain, blocks, xp, kw)
                             if dtype == torch.float32:
                                 u_total[(bkind, k, "kernel")] += tk
                                 u_total[(bkind, k, "plain")] += tp
@@ -1180,8 +1153,7 @@ def main(argv=None) -> int:
                                 bucket=bi, kind=bkind, dtype=str(dtype), n_blocks=bucket.n_blocks,
                                 block_shape=bucket.block_shape, mirror=bool(bucket.mirror),
                                 rank=None if is_dense else bucket.rank_padded,
-                                trans=bool(kw["trans"]), k=k, kernel_ms=tk, plain_ms=tp,
-                                route_ms=by_route))
+                                trans=bool(kw["trans"]), k=k, kernel_ms=tk, plain_ms=tp))
                     del blocks
     u_abs = {"dense": stats[("dense_bucket_matvec", torch.float32)]["max_abs_err"],
              "lr": stats[("lr_bucket_matvec", torch.float32)]["max_abs_err"]}
@@ -1490,14 +1462,13 @@ def main(argv=None) -> int:
                 routes, picked = routes_of(bk, side, m_pad_c)
                 if dtype == torch.complex64:  # the main path's own plan for the picked route
                     routes[picked] = getattr(bucket, f"plan_{side}")
-                ref_plan = next(iter(routes.values()))
                 for conj in (False, True):
                     for k in (1, 8):
                         xp = crandn(m_pad_c, k, dtype=dtype)
                         for route, plan in routes.items():
                             key = f"tiled/{dtype}/{side}/conj{int(conj)}/k{k}/{route}"
                             c_worst[key] = max(c_worst.get(key, 0.0), compare(
-                                plan, xp, f"bucket {bi} {key}", conj=conj, ref_plan=ref_plan,
+                                plan, xp, f"bucket {bi} {key}", conj=conj,
                                 main=route == picked))
                         if side == "t" and not conj:
                             ms, tp = time_tiled(routes, picked, bk, side, xp)
@@ -1510,7 +1481,7 @@ def main(argv=None) -> int:
                                 kernel_ms=ms[picked], plain_ms=tp))
             # the loop's names would keep the last complex128 copy (2.75 GB of
             # factors at n = 100,000) alive to the end of the script
-            del bk, routes, plan, ref_plan
+            del bk, routes, plan
     hh_timed = {(bi, kw["trans"], kw["conj"]) for bi, _, _, kw in terms_of(HH, "N")}
     pad_h = HH.shape[0] + linalg._pad_in_of(HH)
     for bi, bucket in enumerate(buckets_h):
@@ -1533,15 +1504,14 @@ def main(argv=None) -> int:
                         c_worst[key] = max(c_worst.get(key, 0.0), compare_term(
                             kernel, plain, blocks, xp, kw, f"hermitian bucket {bi} {key}"))
                         if (bi, trans, conj) in hh_timed:
-                            tk, tp, by_route = time_term(kernel, plain, blocks, xp, kw)
+                            tk, tp = time_term(kernel, plain, blocks, xp, kw)
                             c_rows.append(dict(
                                 path="hermitian_unplanned_path", kernel="unplanned",
                                 dtype=str(dtype), bucket=bi,
                                 kind="dense" if is_dense else "lr", n_blocks=bucket.n_blocks,
                                 block_shape=bucket.block_shape, mirror=bool(bucket.mirror),
                                 rank=None if is_dense else bucket.rank_padded,
-                                trans=trans, conj=conj, k=k, kernel_ms=tk, plain_ms=tp,
-                                route_ms=by_route))
+                                trans=trans, conj=conj, k=k, kernel_ms=tk, plain_ms=tp))
             del blocks
     complex_dtypes = (torch.complex64, torch.complex128)
     c_edges = dict(tiled=tiled_edges(complex_dtypes, conjs=(False, True)),
@@ -1611,16 +1581,12 @@ def main(argv=None) -> int:
     floor_calls = {
         "tiled_dense": lambda pl=build_tile_plan(tiny_d, "t", 64): tiled_bucket_matvec(
             pl, x_t, out=y_t),
-        "tiled_lr_one_launch": lambda pl=build_tile_plan(tiny_l, "t", 64): tiled_bucket_matvec(
-            pl, x_t, out=y_t),
         "tiled_lr_split": lambda pl=build_tile_plan_lr_split(tiny_l, "t", 64):
             tiled_bucket_matvec(pl, x_t, out=y_t),
         "unplanned_dense": lambda: dense_bucket_matvec(
             tiny_d.data, tiny_d.s_off, tiny_d.t_off, x_t, False, 64, out=y_t),
-        "unplanned_lr_one_launch": lambda: lr_bucket_matvec(
-            tiny_l.U, tiny_l.V, tiny_l.s_off, tiny_l.t_off, x_t, False, 64, out=y_t, split=False),
         "unplanned_lr_two_stage": lambda: lr_bucket_matvec(
-            tiny_l.U, tiny_l.V, tiny_l.s_off, tiny_l.t_off, x_t, False, 64, out=y_t, split=True),
+            tiny_l.U, tiny_l.V, tiny_l.s_off, tiny_l.t_off, x_t, False, 64, out=y_t),
         "torch_add_": lambda: y_t.add_(1.0),
     }
     floor = {}
@@ -2200,9 +2166,8 @@ def main(argv=None) -> int:
         y24["l2l_N", k] = y_l
     sync()
     # launches a product: one wrapper call per bucket term over the blocks of
-    # all 8 partitions (the per-partition route made 8 x terms); two-stage
-    # terms are the low-rank ones that lr_split_wanted sends through two
-    # launches
+    # all 8 partitions (the per-partition route made 8 x terms); every
+    # low-rank term is two CUDA launches
     per_product24 = {}
     for name, d in (("plain_rows", D24), ("symmetric_rows", DS24)):
         for k in (1, 8):
@@ -2518,7 +2483,7 @@ def main(argv=None) -> int:
             and aux27.get("skipped") == {} and heads27 and heads27[-1]["value"],
             f"torch_bench rows: rc {bench27.returncode}, violations "
             f"{aux27.get('violations')}, skipped {aux27.get('skipped')}: {err27[-2000:]}")
-    require(len(smoke27) == 7 and all(r.get("route") == "cuda" and r.get("launches", 0) > 0
+    require(len(smoke27) == 6 and all(r.get("route") == "cuda" and r.get("launches", 0) > 0
                                       for r in smoke27.values()),
             f"torch_bench kernel_smoke routes without a CUDA launch: {smoke27}")
 
@@ -2607,18 +2572,19 @@ def main(argv=None) -> int:
     # name: (entry point, source, all sources, the TPU kernel's pallas_call)
     sources = {
         "tiled_bucket_matvec": ("htool_stream_matvec", csrc + "stream_matvec.cu",
-                                [csrc + "stream_matvec.cu", csrc + "tiled_matvec.cu",
-                                 csrc + "matvec_stream.cuh", csrc + "matvec_block.cuh"],
+                                [csrc + "stream_matvec.cu", csrc + "matvec_stream.cuh",
+                                 csrc + "matvec_scalar.cuh"],
                                 "htool_tpu/ops/tiled_matvec.py:585"),
         SPLIT: ("htool_stream_matvec", csrc + "stream_matvec.cu",
-                [csrc + "stream_matvec.cu", csrc + "matvec_stream.cuh"],
+                [csrc + "stream_matvec.cu", csrc + "matvec_stream.cuh", csrc + "matvec_scalar.cuh"],
                 "htool_tpu/ops/tiled_matvec.py:215"),
         "dense_bucket_matvec": ("htool_dense_bucket_stream", csrc + "bucket_stream.cu",
-                                [csrc + "bucket_stream.cu", csrc + "matvec_stream.cuh"],
+                                [csrc + "bucket_stream.cu", csrc + "matvec_stream.cuh",
+                                 csrc + "matvec_scalar.cuh"],
                                 "htool_tpu/ops/bucket_matvec.py:179"),
         "lr_bucket_matvec": ("htool_lr_bucket_stream", csrc + "bucket_stream.cu",
-                             [csrc + "bucket_stream.cu", csrc + "bucket_matvec.cu",
-                              csrc + "matvec_stream.cuh", csrc + "matvec_block.cuh"],
+                             [csrc + "bucket_stream.cu", csrc + "matvec_stream.cuh",
+                              csrc + "matvec_scalar.cuh"],
                              "htool_tpu/ops/bucket_matvec.py:258"),
     }
 

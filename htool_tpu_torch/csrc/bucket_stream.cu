@@ -22,8 +22,7 @@
 //   staging tensor t [nb * r_pad, k] in device memory that the wrapper
 //   allocates (it stays in the 50 MB L2): stage A t_i = op(V_i) x_i (trans:
 //   op(U_i)ᵀ x_i), stored, no atomics; stage B y_i += op(U_i) t_i (trans:
-//   op(V_i)ᵀ t_i).  Terms too short for a second launch to pay
-//   (ops/cut.py::lr_split_wanted) run the one-launch form, bucket_matvec.cu.
+//   op(V_i)ᵀ t_i), each stage cut by the same byte rule.
 //
 // What bounds them on the H100: every block entry is read once per product
 // for 2·k (real) or 8·k (complex) flops, so device memory bandwidth

@@ -1,10 +1,9 @@
-// Streaming core of the H-matrix product kernels for NVIDIA Hopper (sm_90a):
-// the redesign of the block routines of matvec_block.cuh for this card.
+// Streaming core of the H-matrix product kernels for NVIDIA Hopper (sm_90a).
 //
 // It serves the planned kernel (stream_matvec.cu, behind
 // tiled_bucket_matvec; replaces htool_tpu/ops/tiled_matvec.py::_tiled_kernel
 // and its two-stage route build_tile_plan_lr_split) and the unplanned dense
-// and two-stage low-rank kernels (bucket_stream.cu, behind
+// and low-rank kernels (bucket_stream.cu, behind
 // dense_bucket_matvec and lr_bucket_matvec; replaces
 // htool_tpu/ops/bucket_matvec.py::_dense_kernel and ::_lr_kernel).
 //
@@ -13,11 +12,12 @@
 //
 //   N:  out[r] (+)= sum_c g(A[r, c]) x[c]        T:  out[c] (+)= sum_r g(A[r, c]) x[r]
 //
-// with g = conj when asked.  A dense block is one such matrix.  A low-rank
-// block U [bm, r] · V [r, bn] is two launches through a staging tensor t in
-// device memory (stage A: t = V x or Uᵀ x, stored; stage B: y += U t or
-// Vᵀ t), so no CTA walks a block in passes of rank rows and one wide block
-// spreads over many CTAs in both stages.
+// with g = conj when asked.  A dense block is one such matrix.  Every
+// low-rank term, planned or not, is two launches over its blocks
+// U [bm, r] · V [r, bn] through a staging tensor t in device memory
+// (stage A: t = V x or Uᵀ x, stored; stage B: y += U t or Vᵀ t), so no CTA
+// walks a block in passes of rank rows and one wide block spreads over many
+// CTAs in both stages.
 //
 // What bounds the work on the H100: every entry of A is read once for 2·k
 // (real) or 8·k (complex) flops, so device memory bandwidth (3.35 TB/s);
@@ -97,7 +97,7 @@
 
 #include <type_traits>
 
-#include "matvec_block.cuh"
+#include "matvec_scalar.cuh"
 
 namespace htool_mv {
 

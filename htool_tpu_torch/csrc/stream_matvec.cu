@@ -2,7 +2,7 @@
 //
 // Replaces htool_tpu/ops/tiled_matvec.py::_tiled_kernel (the Pallas TPU
 // kernel behind tiled_bucket_matvec) for dense plans and for the two stages
-// of a split low-rank plan (build_tile_plan_lr_split: stage A t = op(V) x
+// of every low-rank plan (build_tile_plan_lr_split: stage A t = op(V) x
 // into a compact staging tensor, stage B y += op(U) t).  One launch applies
 // one plan:
 //
@@ -113,5 +113,9 @@ HTOOL_STREAM_ENTRY(f32, float)
 HTOOL_STREAM_ENTRY(f64, double)
 HTOOL_STREAM_ENTRY(c64, cplx<float>)
 HTOOL_STREAM_ENTRY(c128, cplx<double>)
+
+const char* htool_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
 
 }  // extern "C"

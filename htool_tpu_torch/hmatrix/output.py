@@ -11,7 +11,10 @@ reads a file that ``htool_tpu.hmatrix.output.save_hmatrix`` wrote (its tiled
 plans are TPU layouts and are not read: :func:`..linalg.prepare_tiled_matvec`
 makes the port's own).  The port stores its own :class:`TilePlan` fields
 under keys of their own (``*_tplan_*``), so a file it wrote is one the JAX
-package's loader reads too, without plans.
+package's loader reads too, without plans.  A file from before every
+low-rank plan was split can hold a one-launch plan of a low-rank bucket
+(``*_tplan_<side>_aux`` on an ``l`` bucket): the loader builds that
+bucket's split plan from the bucket itself.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import csv
 import numpy as np
 import torch
 
-from ..ops.tiled_matvec import SplitPlan, TilePlan
+from ..ops.tiled_matvec import SplitPlan, TilePlan, build_tile_plan_lr_split
 from ..utils.device import resolve_device
 from .hmatrix import DenseBucket, HMatrix, LowRankBucket
 
@@ -130,8 +133,8 @@ def _pack_plan(payload: dict, key: str, plan: TilePlan) -> None:
 
 
 def _pack_plans(payload: dict, prefix: str, bucket) -> None:
-    """One-launch plans under ``*_tplan_<side>``; the two stages of a split
-    plan under ``*_tplan_<side>_a`` / ``_b`` with its ``r_pad``."""
+    """Dense plans under ``*_tplan_<side>``; the two stages of a split plan
+    under ``*_tplan_<side>_a`` / ``_b`` with its ``r_pad``."""
     for side in ("t", "s"):
         plan = getattr(bucket, f"plan_{side}")
         key = f"{prefix}_tplan_{side}"
@@ -161,14 +164,15 @@ def _unpack_plans(z, prefix: str, bucket, device) -> None:
         if f"{key}_split" in z:
             # stage A streams V then stage B U; transposed (side "s"): U then V
             first, second = (bucket.V, bucket.U) if side == "t" else (bucket.U, bucket.V)
-            plan = SplitPlan(
-                _unpack_plan(z, f"{key}_a", dict(kind="dense", data=first), device),
-                _unpack_plan(z, f"{key}_b", dict(kind="dense", data=second), device),
-                int(z[f"{key}_split"][0]))
-        elif f"{key}_aux" in z:
-            blocks = (dict(kind="dense", data=bucket.data) if isinstance(bucket, DenseBucket)
-                      else dict(kind="lr", U=bucket.U, V=bucket.V))
-            plan = _unpack_plan(z, key, blocks, device)
+            plan = SplitPlan(_unpack_plan(z, f"{key}_a", dict(data=first), device),
+                             _unpack_plan(z, f"{key}_b", dict(data=second), device),
+                             int(z[f"{key}_split"][0]))
+        elif f"{key}_aux" in z and isinstance(bucket, DenseBucket):
+            plan = _unpack_plan(z, key, dict(data=bucket.data), device)
+        elif f"{key}_aux" in z and bucket.rank_padded > 0:
+            # a one-launch plan of a low-rank bucket: the split plan of the same tiles
+            aux = dict(zip(_PLAN_AUX, (int(a) for a in z[f"{key}_aux"])))
+            plan = build_tile_plan_lr_split(bucket, side, aux["out_len"], aux["T"])
         else:
             continue
         setattr(bucket, f"plan_{side}", plan)

@@ -65,15 +65,12 @@ def _sources() -> list[Path]:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "htool_tiled_matvec": [ci, ci, vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, vp, ci, vp, vp],
         "htool_stream_matvec": [ci, ci, ci, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, ci,
                                 ci, vp, ci, vp, vp],
         "htool_lr_bucket_stream": [ci, ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp, ll, ci,
                                    vp, ll, vp, ci, ci, ci, ci, ci, ci, ci, vp],
         "htool_dense_bucket_stream": [ci, ci, vp, ci, ci, ci, vp, vp, ll, ll, vp, ll, ci, vp,
                                       ll, ci, ci, ci, vp],
-        "htool_lr_bucket_matvec": [ci, ci, vp, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp,
-                                   ll, ci, vp, ll, vp],
     }
     for base, argtypes in signatures.items():
         for suffix in SUFFIX_OF.values():

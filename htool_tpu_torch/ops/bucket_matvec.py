@@ -22,13 +22,8 @@ G panels per CTA), so the grid is ``(nb·P/G, k chunks)`` whatever the
 bucket.  A dense term is one launch over its blocks.  A low-rank term runs
 in two stages, ``t = op(V)·x`` (``op(U)ᵀ·x`` when transposed) into a
 staging tensor ``[nb·r_pad, k]`` that the wrapper allocates, then
-``y += op(U)·t``, each stage cut by the same rule; a term so short that the
-second launch costs more than the streaming saves
-(:func:`..ops.cut.lr_split_wanted`, by the bytes of a block and of the
-bucket and by k) runs one block per CTA in one launch
-(``csrc/bucket_matvec.cu``, through a shared-memory intermediate).  Not
-ported: the VMEM gate ``pallas_matvec_ok`` and the ``HTOOL_TPU_PALLAS``
-switch.
+``y += op(U)·t``, each stage cut by the same rule.  Not ported: the VMEM
+gate ``pallas_matvec_ok`` and the ``HTOOL_TPU_PALLAS`` switch.
 
 The wrappers take float32, float64, complex64 or complex128 blocks of the
 same dtype as x; the complex kernels read interleaved entries as PyTorch
@@ -36,7 +31,7 @@ stores them.  CPU tensors run the plain version (gather → ``bmm`` →
 ``index_add_``); CUDA tensors launch the kernel or raise; other devices and
 other dtypes raise.
 Each term that goes to the GPU adds one to the wrapper's ``launches`` and to
-its ``launches_by_dtype[dtype]``, and its CUDA launches (two for a two-stage
+its ``launches_by_dtype[dtype]``, and its CUDA launches (two for a low-rank
 term) to ``cuda_launches``; a bucket with no blocks launches nothing.  Each
 term that runs the plain version adds one to the process counter
 ``plain_calls`` (:func:`..utils.profiling.count`).
@@ -50,7 +45,7 @@ from typing import Optional
 import torch
 
 from ..utils.profiling import count
-from .cut import cut_rule, lr_split_wanted, lr_stage_shapes, staging_rows
+from .cut import cut_rule, lr_stage_shapes, staging_rows
 
 __all__ = [
     "dense_bucket_matvec",
@@ -170,12 +165,10 @@ def dense_bucket_matvec(data, in_off, out_off, x_pad, trans: bool, out_len: int,
 def lr_bucket_matvec(U, V, in_off, out_off, x_pad, trans: bool, out_len: int,
                      *, in_root: int = 0, out_root: int = 0,
                      out: Optional[torch.Tensor] = None,
-                     conj: bool = False, split: Optional[bool] = None) -> torch.Tensor:
+                     conj: bool = False) -> torch.Tensor:
     """One low-rank bucket term: U [nb, bm, r], V [nb, r, bn], int64 offsets
     [nb], x_pad [L, k]; ``conj`` conjugates both factors.  Returns y
-    [out_len, k], added into ``out`` when it is given.  ``split`` forces the
-    two-stage (True) or the one-launch (False) kernel; by default
-    :func:`..ops.cut.lr_split_wanted` decides from the shape and k."""
+    [out_len, k], added into ``out`` when it is given."""
     y, k = _checked("lr_bucket_matvec", [U, V], in_off, out_off, x_pad, out_len, out)
     if x_pad.device.type == "cpu":
         count("plain_calls")
@@ -186,16 +179,13 @@ def lr_bucket_matvec(U, V, in_off, out_off, x_pad, trans: bool, out_len: int,
     bn = int(V.shape[2])
     if nb == 0 or k == 0 or r == 0:
         return y
-    common = (int(trans), int(bool(conj)), U.data_ptr(), V.data_ptr(), nb, bm, bn, r,
-              in_off.data_ptr(), out_off.data_ptr(), int(in_root), int(out_root),
-              x_pad.data_ptr(), int(x_pad.shape[0]), k, y.data_ptr(), int(out_len))
-    route = _lr_route(nb, bm, bn, r, U.element_size(), bool(trans), split, k)
-    if route is None:
-        _launch(lr_bucket_matvec, "htool_lr_bucket_matvec", common, x_pad)
-        return y
+    route = _lr_route(nb, bm, bn, r, U.element_size(), bool(trans))
     t = torch.empty((nb * route[0], k), dtype=x_pad.dtype, device=x_pad.device)
-    _launch(lr_bucket_matvec, "htool_lr_bucket_stream", common + (t.data_ptr(), *route), x_pad,
-            cuda_launches=2)
+    _launch(lr_bucket_matvec, "htool_lr_bucket_stream",
+            (int(trans), int(bool(conj)), U.data_ptr(), V.data_ptr(), nb, bm, bn, r,
+             in_off.data_ptr(), out_off.data_ptr(), int(in_root), int(out_root),
+             x_pad.data_ptr(), int(x_pad.shape[0]), k, y.data_ptr(), int(out_len),
+             t.data_ptr(), *route), x_pad, cuda_launches=2)
     return y
 
 
@@ -207,14 +197,9 @@ def _dense_route(nb, bm, bn, item, trans):
 
 
 @functools.lru_cache(maxsize=None)
-def _lr_route(nb, bm, bn, r, item, trans, split, k):
-    """What depends only on a low-rank bucket's shape and on k: ``None`` for
-    the one-launch kernel, else ``(r_pad, P, cut, G of stage A, P, cut, G of
-    stage B)`` for the two-stage one."""
-    if split is None:
-        split = lr_split_wanted(nb, bm, bn, r, item, k)
-    if not split:
-        return None
+def _lr_route(nb, bm, bn, r, item, trans):
+    """What depends only on a low-rank bucket's shape: ``(r_pad, P, cut, G
+    of stage A, P, cut, G of stage B)``."""
     stages = []
     for rows, cols in lr_stage_shapes(bm, bn, r, trans):
         stages += cut_rule(nb, rows, cols, item, trans)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-__all__ = ["Cut", "cut_rule", "panels", "lr_stage_shapes", "lr_split_wanted", "staging_rows"]
+__all__ = ["Cut", "cut_rule", "panels", "lr_stage_shapes", "staging_rows"]
 
 _TARGET_BYTES = 256 * 1024  # bytes one CTA should stream
 _MIN_BYTES = 16 * 1024  # never cut finer than this
@@ -96,33 +96,3 @@ def lr_stage_shapes(bm: int, bn: int, r: int, trans: bool):
     ``t = Uᵀ x`` then ``y += Vᵀ t``.  Each stage applies its matrix with the
     term's ``trans``."""
     return ((bm, r), (r, bn)) if trans else ((r, bn), (bm, r))
-
-
-# Rule between the one-launch form of a low-rank term (t in shared memory,
-# one CTA per group of blocks) and the two-stage form (t in device memory,
-# both stages cut by bytes).  The second launch costs the host 20 - 35 us
-# more per call and the device about 10 us, and pays when the term is long
-# enough: measured on an NVIDIA H100 80GB HBM3, 700.00 W
-# (``tools/torch_kernel_probe.py --phases rule``: blocks of 1 KB - 1.3 MB,
-# buckets of 256 KB - 64 MB, three scalar types, planned and unplanned, both
-# orientations; the table and the thresholds' fit are in PERF.md section 6).
-# With more than one column the one-launch kernel is short of bytes in
-# flight, and two stages win from 4 MB a bucket up, or from 128 KB a block
-# (one CTA then walks a long block alone).  With one column it is not, and
-# two stages win only where a block is so large (1 MB) that a few CTAs would
-# stream it alone.
-_SPLIT_BUCKET_BYTES = 4 << 20
-_SPLIT_BLOCK_BYTES = 128 << 10
-_SPLIT_BLOCK_BYTES_K1 = 1 << 20
-
-
-def lr_split_wanted(nb: int, bm: int, bn: int, r: int, itemsize: int,
-                    k: int | None = None) -> bool:
-    """Whether a low-rank bucket of ``nb`` blocks ``U [bm, r] · V [r, bn]``
-    runs in two stages.  ``k`` is the number of right-hand-side columns where
-    the caller knows it (an unplanned term); a plan is built without it and
-    is taken to serve more than one column."""
-    block = (bm + bn) * r * itemsize
-    if k == 1:
-        return block >= _SPLIT_BLOCK_BYTES_K1
-    return block >= _SPLIT_BLOCK_BYTES or nb * block >= _SPLIT_BUCKET_BYTES

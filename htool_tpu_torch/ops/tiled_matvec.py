@@ -32,16 +32,16 @@ Hopper differences (no VMEM, no sequential grid):
   (``blk``) instead of materializing sorted, padded copies; U keeps the
   bucket's ``[nb, bm, r]`` layout (the reference stores it transposed for
   the TPU's (8, 128) tiling).
-- Split two-stage plans (:func:`build_tile_plan_lr_split`) exist for speed,
-  not for a memory gate: stage A writes ``t = op(V)·x`` (or ``op(U)ᵀ·x``)
-  into a staging tensor ``[nb·r_pad, k]`` in device memory, stage B adds
-  ``op(U)·t`` into y.  Both stages are dense plans over the bucket's own U
-  and V (no transposed or padded copies), each cut by the byte rule, so one
-  wide block spreads over many CTAs in both stages.  Stage B's output
-  chunks (the reference's ``_chunk_stand_width``, at most 2048 wide) are
-  the rule's panels: the last one is clipped, never padded.
-  :func:`..hmatrix.linalg.prepare_tiled_matvec` picks the one-launch or
-  the split plan per bucket by :func:`.cut.lr_split_wanted`.
+- A low-rank bucket has one plan, the split two-stage plan
+  (:func:`build_tile_plan_lr_split`; the reference builds it only where a
+  one-launch plan would not fit VMEM): stage A writes ``t = op(V)·x`` (or
+  ``op(U)ᵀ·x``) into a staging tensor ``[nb·r_pad, k]`` in device memory,
+  stage B adds ``op(U)·t`` into y.  Both stages are dense plans over the
+  bucket's own U and V (no transposed or padded copies), each cut by the
+  byte rule, so one wide block spreads over many CTAs in both stages.
+  Stage B's output chunks (the reference's ``_chunk_stand_width``, at most
+  2048 wide) are the rule's panels: the last one is clipped, never padded.
+  :func:`build_tile_plan` takes dense buckets only.
 - A dense plan (a dense bucket, or either stage of a split plan) carries
   each slot's *live extent*: the true rows and columns of the matrix the
   slot streams, as stored (``ext``; a dense block's true sizes, a factor's
@@ -63,11 +63,9 @@ Hopper differences (no VMEM, no sequential grid):
   over the bucket's complex tensors, of either width, and
   ``tiled_bucket_matvec(..., conj=True)`` gives the conjugated modes.
 
-The kernels are ``htool_tpu_torch/csrc/stream_matvec.cu`` (dense plans and
-both stages of a split plan: panels streamed through shared memory) and
-``csrc/tiled_matvec.cu`` (one-launch low-rank plans, t in shared memory:
-terms too short for a second launch to pay).
-The wrapper launches them for CUDA tensors and runs
+The kernel is ``htool_tpu_torch/csrc/stream_matvec.cu`` (dense plans and
+both stages of a split plan: panels streamed through shared memory).
+The wrapper launches it for CUDA tensors and runs
 :func:`tiled_bucket_matvec_reference` only for CPU tensors.
 """
 
@@ -93,7 +91,6 @@ __all__ = [
     "tiled_bucket_matvec_reference",
 ]
 
-_GROUP_LR = 4  # slots per step of a one-launch low-rank plan
 _TILE_ROWS = 256  # default T (see the module note)
 _REF_CHUNK_BYTES = 1 << 28  # block data gathered per pass by the plain version
 _STAGE_B_CHUNK = 2048  # widest output chunk of a stage-B plan entry
@@ -103,9 +100,10 @@ _READ_ITEMS = (4, 8, 16)  # block itemsizes a plan counts its read bytes for
 
 @dataclass
 class TilePlan:
-    """Host-planned schedule for one bucket orientation.
+    """Host-planned schedule of dense blocks for one bucket orientation: a
+    dense bucket, or one stage of a :class:`SplitPlan`.
 
-    ``data``/``U``/``V`` are the bucket's own tensors (not sorted copies).
+    ``data`` is the bucket's own tensor (not a sorted copy).
     Step i covers slots ``[i·G, (i+1)·G)`` of tile ``tile_of[i]``; slot s
     applies panel ``blk[s] % P`` of block ``blk[s] // P`` (-1: padding) to
     the input window at ``in_off[s]`` and adds it at row ``out_off[s] =
@@ -115,7 +113,6 @@ class TilePlan:
     the plain version reads ``out_rel``/``tile_of`` and folds; ``first_of``
     is the reference plan's walk, kept for comparing plans."""
 
-    kind: str  # "dense" | "lr"
     T: int  # tile rows
     E: int  # extension rows (= out_w)
     G: int  # slots per step
@@ -127,9 +124,7 @@ class TilePlan:
     trans: bool  # apply blocks transposed
     in_end: int  # largest in_off + in_w over the slots (x rows needed)
     P: int = 1  # panels per block
-    data: Optional[torch.Tensor] = None  # [nb, bm, bn] (dense)
-    U: Optional[torch.Tensor] = None  # [nb, bm, r] (lr)
-    V: Optional[torch.Tensor] = None  # [nb, r, bn] (lr)
+    data: Optional[torch.Tensor] = None  # [nb, bm, bn]
     blk: Optional[torch.Tensor] = None  # [n_steps*G] int32
     in_off: Optional[torch.Tensor] = None  # [n_steps*G] int32
     out_rel: Optional[torch.Tensor] = None  # [n_steps*G] int32
@@ -142,19 +137,19 @@ class TilePlan:
     ext_max: tuple = ()  # (rows, cols): the largest live extent over the slots
     read_bytes: tuple = ()  # bytes a launch streams, for block itemsizes _READ_ITEMS
 
+    kind = "dense"
+
     @property
     def dtype(self) -> torch.dtype:
-        return (self.data if self.kind == "dense" else self.U).dtype
+        return self.data.dtype
 
     def streamed_bytes(self) -> int:
         """Bytes one launch of the plan streams from its blocks at their
         dtype: every slot's live extent, each row's run in whole 32-byte
         sectors (whole blocks for a plan without extents)."""
-        item = (self.data if self.kind == "dense" else self.U).element_size()
         if self.read_bytes:
-            return self.read_bytes[_READ_ITEMS.index(item)]
-        blocks = [self.data] if self.kind == "dense" else [self.U, self.V]
-        return sum(b.numel() * b.element_size() for b in blocks)
+            return self.read_bytes[_READ_ITEMS.index(self.data.element_size())]
+        return self.data.numel() * self.data.element_size()
 
     @property
     def cut(self) -> int:
@@ -163,9 +158,7 @@ class TilePlan:
     def astype(self, dtype: torch.dtype) -> "TilePlan":
         """The same schedule over the blocks cast to ``dtype`` (a copy of the
         block data unless it already has that dtype)."""
-        if self.kind == "dense":
-            return dataclasses.replace(self, data=self.data.to(dtype))
-        return dataclasses.replace(self, U=self.U.to(dtype), V=self.V.to(dtype))
+        return dataclasses.replace(self, data=self.data.to(dtype))
 
 
 @dataclass
@@ -222,33 +215,33 @@ def _tile_rows(out_len: int, tile_rows: Optional[int]) -> int:
 
 def build_tile_plan(bucket, out_side: str, out_len: int,
                     tile_rows: Optional[int] = None, max_cut: Optional[int] = None) -> TilePlan:
-    """Sort the bucket's blocks by their ``out_side`` offsets, cut them into
-    panels by the byte rule (dense buckets; ``max_cut`` bounds a panel's
-    output rows), pack the panels into output tiles and cut each tile's
-    panels into steps of G slots (host planning over the bucket's offsets)."""
-    is_dense = getattr(bucket, "data", None) is not None
+    """Sort a dense bucket's blocks by their ``out_side`` offsets, cut them
+    into panels by the byte rule (``max_cut`` bounds a panel's output rows),
+    pack the panels into output tiles and cut each tile's panels into steps
+    of G slots (host planning over the bucket's offsets).  A low-rank bucket
+    takes :func:`build_tile_plan_lr_split`."""
+    if getattr(bucket, "data", None) is None:
+        raise TypeError("build_tile_plan takes a dense bucket; a low-rank bucket takes "
+                        "build_tile_plan_lr_split")
+    blocks = bucket.data
     bm, bn = bucket.block_shape
-    blocks = bucket.data if is_dense else bucket.U
     ext = bm if out_side == "t" else bn  # output rows of a block
     in_w = bn if out_side == "t" else bm
     trans = out_side == "s"
     t_off = torch.as_tensor(bucket.t_off).cpu().numpy().astype(np.int64)
     s_off = torch.as_tensor(bucket.s_off).cpu().numpy().astype(np.int64)
     nb = t_off.shape[0]
-    live = _live_extent(bucket, nb) if is_dense else None
-    if is_dense:
-        share = 1.0
-        if live is not None and nb:
-            item = blocks.element_size()
-            share = _block_bytes(*live, item).sum() / _block_bytes(
-                np.full(nb, bm), np.full(nb, bn), item).sum()
-        P, cut, G = cut_rule(nb, bm, bn, blocks.element_size(), trans, share)
-        if max_cut is not None and cut > max_cut:
-            P = -(-ext // max_cut)
-            cut = -(-ext // P)
-            P = -(-ext // cut)
-    else:  # the one-launch low-rank kernel takes whole blocks
-        P, cut, G = 1, ext, _GROUP_LR
+    live = _live_extent(bucket, nb)
+    item = blocks.element_size()
+    share = 1.0
+    if live is not None and nb:
+        share = _block_bytes(*live, item).sum() / _block_bytes(
+            np.full(nb, bm), np.full(nb, bn), item).sum()
+    P, cut, G = cut_rule(nb, bm, bn, item, trans, share)
+    if max_cut is not None and cut > max_cut:
+        P = -(-ext // max_cut)
+        cut = -(-ext // P)
+        P = -(-ext // cut)
     lo = np.array([a for a, _ in panels(ext, P, cut)], np.int64)
     # one entry per panel, block-major: value b·P + p
     slot_val = np.arange(nb * P, dtype=np.int64)
@@ -295,19 +288,15 @@ def build_tile_plan(bucket, out_side: str, out_len: int,
         blk=i32(blk), in_off=i32(in_off_p), out_rel=i32(out_rel),
         out_off=i32(out_off_p), tile_of=i32(tile_of), first_of=i32(first_of),
     )
-    if not is_dense:
-        per = bm * bucket.U.shape[2] + bucket.V.shape[1] * bn  # U and V, whole
-        kw["read_bytes"] = tuple(nb * per * item for item in _READ_ITEMS)
-        return TilePlan(kind="lr", U=bucket.U, V=bucket.V, **kw)
     rows, cols = live if live is not None else (np.full(nb, bm), np.full(nb, bn))
-    kw["read_bytes"] = tuple(int(_panel_bytes(rows, cols, P, cut, trans, item).sum())
-                             for item in _READ_ITEMS)
+    kw["read_bytes"] = tuple(int(_panel_bytes(rows, cols, P, cut, trans, it).sum())
+                             for it in _READ_ITEMS)
     if live is not None:
         ext_p = np.zeros((n_steps * G, 2), np.int64)
         ext_p[slot] = np.stack([rows, cols], axis=1)[order // P]
         kw["ext"] = i32(ext_p)
         kw["ext_max"] = (int(rows.max(initial=0)), int(cols.max(initial=0)))
-    return TilePlan(kind="dense", data=bucket.data, **kw)
+    return TilePlan(data=blocks, **kw)
 
 
 def _live_extent(bucket, nb: int):
@@ -414,12 +403,15 @@ def build_tile_plan_complex(bucket, out_side: str, out_len: int,
     of the reference's ``build_tile_plan_complex``.  There a complex bucket
     becomes real plans over its real and imaginary planes; here the kernels
     read interleaved complex entries, so the plan is :func:`build_tile_plan`'s
+    (a dense bucket) or :func:`build_tile_plan_lr_split`'s (a low-rank one)
     over the bucket's own complex tensors and no plane copy exists.  The
     conjugated modes are ``tiled_bucket_matvec(plan, x, conj=True)``."""
-    blocks = bucket.data if getattr(bucket, "data", None) is not None else bucket.U
+    is_dense = getattr(bucket, "data", None) is not None
+    blocks = bucket.data if is_dense else bucket.U
     if not blocks.dtype.is_complex:
         raise TypeError(f"build_tile_plan_complex: the bucket is {blocks.dtype}")
-    return build_tile_plan(bucket, out_side, out_len, tile_rows)
+    build = build_tile_plan if is_dense else build_tile_plan_lr_split
+    return build(bucket, out_side, out_len, tile_rows)
 
 
 def _fold(parts: torch.Tensor, plan: TilePlan) -> torch.Tensor:
@@ -476,38 +468,6 @@ def _plain_dense(plan: TilePlan, x_pad: torch.Tensor, conj: bool) -> torch.Tenso
     return parts
 
 
-def _plain_lr(plan: TilePlan, x_pad: torch.Tensor, conj: bool) -> torch.Tensor:
-    """parts of a one-launch low-rank plan: ``U (V x)`` or ``Vᵀ (Uᵀ x)`` on
-    gathered windows."""
-    k = x_pad.shape[1]
-    dev = x_pad.device
-    TE = plan.T + plan.E
-    parts = torch.zeros((plan.n_steps * TE, k), dtype=x_pad.dtype, device=dev)
-    blk = plan.blk.to(dev).long()
-    sel = torch.nonzero(blk >= 0).flatten()
-    b = blk[sel]
-    io = plan.in_off.to(dev).long()[sel]
-    orow = (sel // plan.G) * TE + plan.out_rel.to(dev).long()[sel]
-    ar_in = torch.arange(plan.in_w, device=dev)
-    ar_out = torch.arange(plan.out_w, device=dev)
-    per = plan.U[0].numel() + plan.V[0].numel()
-    step = max(1, _REF_CHUNK_BYTES // max(1, per * x_pad.element_size()))
-    for lo in range(0, b.shape[0], step):
-        bc = b[lo : lo + step]
-        xg = x_pad[io[lo : lo + step, None] + ar_in]  # [c, in_w, k]
-        U = plan.U[bc].to(x_pad.dtype)
-        V = plan.V[bc].to(x_pad.dtype)
-        if conj:
-            U, V = U.conj(), V.conj()
-        if plan.trans:
-            contrib = V.transpose(1, 2) @ (U.transpose(1, 2) @ xg)
-        else:
-            contrib = U @ (V @ xg)
-        idx = (orow[lo : lo + step, None] + ar_out).reshape(-1)
-        parts.index_add_(0, idx, contrib.reshape(-1, k))
-    return parts
-
-
 def tiled_bucket_matvec_reference(plan, x_pad: torch.Tensor,
                                   out: Optional[torch.Tensor] = None,
                                   conj: bool = False) -> torch.Tensor:
@@ -520,7 +480,7 @@ def tiled_bucket_matvec_reference(plan, x_pad: torch.Tensor,
     if isinstance(plan, SplitPlan):
         t = tiled_bucket_matvec_reference(plan.stage_a, x_pad, conj=conj)
         return tiled_bucket_matvec_reference(plan.stage_b, t, out, conj)
-    parts = (_plain_dense if plan.kind == "dense" else _plain_lr)(plan, x_pad, conj)
+    parts = _plain_dense(plan, x_pad, conj)
     y = _fold(parts.view(plan.n_steps, plan.T + plan.E, x_pad.shape[1]), plan)
     return y if out is None else out.add_(y)
 
@@ -531,35 +491,25 @@ def _launch_args(plan: TilePlan, device, dtype):
     cached = getattr(plan, "_args", None)
     if cached is not None and cached[0] == (device, dtype):
         return cached[1]
-    blocks = [plan.data] if plan.kind == "dense" else [plan.U, plan.V]
     ints = [plan.blk, plan.in_off, plan.out_off] + ([] if plan.ext is None else [plan.ext])
-    for t in blocks + ints:
+    for t in [plan.data] + ints:
         if t.device != device or not t.is_contiguous():
             raise ValueError("tiled_bucket_matvec: plan tensors must be contiguous "
                              f"and on {device}")
-    if any(t.dtype != dtype for t in blocks):
-        raise TypeError(f"tiled_bucket_matvec: blocks are {blocks[0].dtype}, x is {dtype}")
+    if plan.data.dtype != dtype:
+        raise TypeError(f"tiled_bucket_matvec: blocks are {plan.data.dtype}, x is {dtype}")
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError("tiled_bucket_matvec: plan indices must be int32")
     from ..kernels import entry_point
 
-    ptrs = (plan.blk.data_ptr(), plan.in_off.data_ptr(), plan.out_off.data_ptr())
-    if plan.kind == "dense":
-        # CTA c takes the slots [c·G, (c+1)·G) of the flat list: the plan's steps
-        nb, R, C = (int(s) for s in plan.data.shape)
-        fn = entry_point("htool_stream_matvec", dtype)
-        head = (int(plan.trans),)
-        ext = None if plan.ext is None else plan.ext.data_ptr()  # None: whole blocks
-        lR, lC = plan.ext_max if plan.ext is not None and plan.ext_max else (R, C)
-        mid = (plan.data.data_ptr(), R, C, int(plan.P), int(plan.out_w), lR, lC, *ptrs, ext,
-               int(plan.n_steps) * int(plan.G), int(plan.G))
-    else:
-        bm, r, bn = plan.U.shape[1], plan.U.shape[2], plan.V.shape[2]
-        fn = entry_point("htool_tiled_matvec", dtype)
-        head = (int(plan.trans),)
-        mid = (plan.U.data_ptr(), plan.V.data_ptr(), int(bm), int(bn), int(r), *ptrs,
-               int(plan.n_steps), int(plan.G))
-    plan._args = ((device, dtype), (fn, head, mid))
+    # CTA c takes the slots [c·G, (c+1)·G) of the flat list: the plan's steps
+    nb, R, C = (int(s) for s in plan.data.shape)
+    ext = None if plan.ext is None else plan.ext.data_ptr()  # None: whole blocks
+    lR, lC = plan.ext_max if plan.ext is not None and plan.ext_max else (R, C)
+    mid = (plan.data.data_ptr(), R, C, int(plan.P), int(plan.out_w), lR, lC,
+           plan.blk.data_ptr(), plan.in_off.data_ptr(), plan.out_off.data_ptr(), ext,
+           int(plan.n_steps) * int(plan.G), int(plan.G))
+    plan._args = ((device, dtype), (entry_point("htool_stream_matvec", dtype), mid))
     return plan._args[1]
 
 
@@ -567,13 +517,12 @@ def _launch(plan: TilePlan, x_pad: torch.Tensor, out: torch.Tensor, conj: bool,
             store: bool) -> None:
     from ..kernels import launch
 
-    fn, head, mid = _launch_args(plan, x_pad.device, x_pad.dtype)
+    fn, mid = _launch_args(plan, x_pad.device, x_pad.dtype)
     if x_pad.shape[0] < plan.in_end:
         raise ValueError(f"tiled_bucket_matvec: x_pad has {x_pad.shape[0]} rows, "
                          f"the plan reads {plan.in_end}")
-    flags = (int(conj), int(store)) if plan.kind == "dense" else (int(conj),)
-    launch(fn, x_pad.device, *head, *flags, *mid, x_pad.data_ptr(), int(x_pad.shape[1]),
-           out.data_ptr())
+    launch(fn, x_pad.device, int(plan.trans), int(conj), int(store), *mid, x_pad.data_ptr(),
+           int(x_pad.shape[1]), out.data_ptr())
     tiled_bucket_matvec.cuda_launches += 1
 
 

@@ -29,8 +29,8 @@ TRACKED = ["BENCH_AUX.json", "bench_iterations.json", "bench_baseline.json",
            "torch_bench_baseline.json"]
 # bench.py's keys that name a JAX mechanism, and the port's key in their place
 PORT_KEY = {"n_compile_events": "n_kernel_builds", "cache_dir": "kernel_build_dir"}
-SMOKE_ROUTES = ["dense_tiled", "dense_tiled_trans", "lr_tiled", "lr_split_tiled",
-                "complex_tiled", "dense_unplanned", "lr_unplanned"]
+SMOKE_ROUTES = ["dense_tiled", "dense_tiled_trans", "lr_split_tiled", "complex_tiled",
+                "dense_unplanned", "lr_unplanned"]
 ENV = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
 
 

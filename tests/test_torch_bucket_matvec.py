@@ -76,10 +76,10 @@ def test_reference_matches_pallas_interpret(monkeypatch, kind, trans, k):
 
 
 def _kernel_walk(blocks, in_off, out_off, x, trans, out_len, in_root, out_root):
-    """Block by block in Python, as the one-launch low-rank kernel walks a
-    bucket (CTA b applies block b to the window at in_off[b] - in_root and
-    adds at row out_off[b] - out_root); the dense route's panels are walked
-    in ``test_torch_dense_stream.py``."""
+    """Per-block oracle in Python: block b (a low-rank one as U V) applied to
+    the window at in_off[b] - in_root and added at row out_off[b] - out_root,
+    each window checked to lie inside x and y; the kernels' panels are
+    walked in ``test_torch_dense_stream.py``."""
     y = torch.zeros((out_len, x.shape[1]), dtype=x.dtype)
     B = blocks[0] if len(blocks) == 1 else blocks[0] @ blocks[1]
     out_w, in_w = (B.shape[2], B.shape[1]) if trans else (B.shape[1], B.shape[2])

@@ -33,8 +33,10 @@ from htool_tpu_torch.convert import hmatrix_from_numpy
 from htool_tpu_torch.hmatrix import linalg as lt
 from htool_tpu_torch.ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
 from htool_tpu_torch.ops.tiled_matvec import (
+    SplitPlan,
     build_tile_plan,
     build_tile_plan_complex,
+    build_tile_plan_lr_split,
     tiled_bucket_matvec,
 )
 from htool_tpu_torch.testing import kernels as kernels_torch
@@ -284,19 +286,27 @@ def test_wrappers_apply_all_four_modes(kind, trans, conj):
 
 
 def test_build_tile_plan_complex_is_the_ordinary_plan():
+    """A complex bucket's plan is the real route's: the dense plan of a dense
+    bucket, the split plan of a low-rank one, over the bucket's own complex
+    tensors."""
     rng = np.random.RandomState(2)
+    dense = _random_bucket("dense", rng)
     bucket = _random_bucket("lr", rng)
-    pc = build_tile_plan_complex(bucket, "t", 300, tile_rows=64)
-    pr = build_tile_plan(bucket, "t", 300, tile_rows=64)
-    for f in dataclasses.fields(pc):
-        a, b = getattr(pc, f.name), getattr(pr, f.name)
-        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
-    assert pc.U is bucket.U and pc.V is bucket.V  # no plane copies
+    for b, build in ((dense, build_tile_plan), (bucket, build_tile_plan_lr_split)):
+        pc = build_tile_plan_complex(b, "t", 300, tile_rows=64)
+        pr = build(b, "t", 300, tile_rows=64)
+        assert type(pc) is type(pr)
+        stages = zip(pc, pr) if isinstance(pc, SplitPlan) else [(pc, pr)]
+        for qc, qr in stages:
+            for f in dataclasses.fields(qc):
+                a, c = getattr(qc, f.name), getattr(qr, f.name)
+                assert torch.equal(a, c) if isinstance(a, torch.Tensor) else a == c, f.name
+    assert pc.stage_a.data is bucket.V and pc.stage_b.data is bucket.U  # no plane copies
     real = dataclasses.replace(bucket, U=bucket.U.real.contiguous(), V=bucket.V.real.contiguous())
     with pytest.raises(TypeError, match="build_tile_plan_complex"):
         build_tile_plan_complex(real, "t", 300)
     p64 = pc.astype(torch.complex64)
-    assert p64.dtype == torch.complex64 and p64.blk is pc.blk
+    assert p64.dtype == torch.complex64 and p64.stage_a.blk is pc.stage_a.blk
 
 
 # ---------------------------------------------------------------------------
@@ -341,8 +351,7 @@ def test_complex_plans_save_load_roundtrip(pairs, tmp_path, name):
                     assert {id(pb.stage_a.data), id(pb.stage_b.data)} == {id(bb.U), id(bb.V)}
                     stages = list(zip(pa, pb))
                 else:
-                    blocks = bb.data if pb.kind == "dense" else bb.U
-                    assert (pb.data if pb.kind == "dense" else pb.U) is blocks
+                    assert pb.data is bb.data
                     stages = [(pa, pb)]
                 for qa, qb in stages:
                     for f in dataclasses.fields(qa):

@@ -2,7 +2,7 @@
 
 A symmetric H-matrix of a sphere ('S', 'L': dense diagonal blocks, mirrored
 dense and low-rank blocks), in float32, float64, complex64 and complex128,
-with split two-stage plans on every low-rank bucket.  For the stored term
+with the split two-stage plan on every low-rank bucket.  For the stored term
 (plan_t) and the mirror term (plan_s) of each bucket:
 
 - each slot's extent is its block's true rows and columns as stored, in the
@@ -38,7 +38,8 @@ _CACHE = {}
 
 
 def operator(dtype: str):
-    """The symmetric H-matrix in ``dtype``, split plans on every low-rank bucket."""
+    """The symmetric H-matrix in ``dtype``, planned (split plans on every
+    low-rank bucket)."""
     if dtype not in _CACHE:
         real = np.float32 if dtype in ("float32", "complex64") else np.float64
         kernel = (laplace_kernel_complex_symmetric if "complex" in dtype
@@ -48,7 +49,7 @@ def operator(dtype: str):
         tree = ht.build_cluster_tree(pts.numpy().astype(np.float64), max_leaf_size=40)
         H = ht.build_hmatrix(gen, tree, epsilon=1e-4, eta=2.0, symmetry="S", UPLO="L")
         assert str(H.dtype) == f"torch.{dtype}"
-        prepare_tiled_matvec(H, lr_split=True)
+        prepare_tiled_matvec(H)
         _CACHE[dtype] = (H, H.to_dense())  # the compressed operator, in user numbering
     return _CACHE[dtype]
 
@@ -141,24 +142,27 @@ def test_product_at_live_extents_matches_dense(dtype, op):
     got = matvec_user(H, x, op=op).numpy()
     assert np.linalg.norm(got - want) / np.linalg.norm(want) <= TOL[dtype]
     # NaN in every padded entry: the planned product reads none of it
-    Hn = prepare_tiled_matvec(fill_padding(H, float("nan")), lr_split=True)
+    Hn = prepare_tiled_matvec(fill_padding(H, float("nan")))
     got_n = matvec_user(Hn, x, op=op).numpy()
     assert np.isfinite(got_n).all()
     np.testing.assert_allclose(got_n, got, rtol=0, atol=1e-12 * np.abs(got).max())
 
 
 def test_plans_without_sizes_stream_whole_blocks():
-    """A bucket that does not know its sizes (or a one-launch low-rank plan)
-    gets no extents: whole blocks, counted whole."""
+    """A bucket that does not know its sizes gets no extents: whole blocks,
+    counted whole, in a dense plan and in both stages of a split plan."""
     H, _ = operator("float64")
     b = H.dense_buckets[0]
     bare = ht.DenseBucket(data=b.data, t_off=b.t_off, s_off=b.s_off)
-    from htool_tpu_torch.ops.tiled_matvec import build_tile_plan
+    from htool_tpu_torch.ops.tiled_matvec import build_tile_plan, build_tile_plan_lr_split
 
     plan = build_tile_plan(bare, "t", H.shape[0] + 256)
     assert plan.ext is None and plan.ext_max == ()
     assert plan.streamed_bytes() == b.data.numel() * 8
     lr = H.lr_buckets[0]
-    one = build_tile_plan(lr, "t", H.shape[0] + 4096)
-    assert one.kind == "lr" and one.ext is None
-    assert one.streamed_bytes() == (lr.U.numel() + lr.V.numel()) * 8
+    bare_lr = ht.LowRankBucket(U=lr.U, V=lr.V, t_off=lr.t_off, s_off=lr.s_off)
+    split = build_tile_plan_lr_split(bare_lr, "t", H.shape[0] + 4096)
+    for st, f in zip(split, (lr.V, lr.U)):  # every row whole, in 32-byte sectors
+        nb, rows, cols = f.shape
+        assert st.ext is None and st.ext_max == ()
+        assert st.streamed_bytes() == nb * rows * (-(-cols * 8 // 32) * 32)

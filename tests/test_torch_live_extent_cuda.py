@@ -2,9 +2,8 @@
 on the card.
 
 A symmetric H-matrix of a sphere ('S', 'L') in float32, float64, complex64
-and complex128, with the planned products and split two-stage plans on
-every low-rank bucket (a one-launch low-rank plan streams whole blocks).
-Every stored entry outside
+and complex128, with the planned products (split two-stage plans on every
+low-rank bucket).  Every stored entry outside
 each block's live extent (rows and columns past its true sizes, rank columns
 of U and rank rows of V past its true rank) is set to NaN in a copy: the
 copy's planned product must stay finite and equal the original's within
@@ -48,7 +47,7 @@ def _operator(dtype: str, device):
     tree = ht.build_cluster_tree(pts, max_leaf_size=100)
     H = ht.build_hmatrix(gen, tree, epsilon=1e-3, eta=10.0, symmetry="S", UPLO="L")
     assert str(H.dtype) == f"torch.{dtype}"
-    return H, (lambda h: prepare_tiled_matvec(h, lr_split=True))
+    return H, prepare_tiled_matvec
 
 
 def _rel(a, b):

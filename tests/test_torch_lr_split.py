@@ -3,10 +3,12 @@
 (a) ``build_tile_plan_lr_split`` against the JAX package's on the same
 bucket: the JAX route (``tiled_bucket_matvec(planA)`` then ``(planB)``, the
 Pallas kernel in interpret mode, float32) against the port's plain two-stage
-version, and the plain two-stage version against the plain one-launch
-version in float64; (b) the cut rule covers every entry of every block
-exactly once; (c) ``matvec`` with split plans against one-launch plans and
-the JAX ``matvec``, and the npz round trip of a split plan."""
+version, and the plain two-stage version against the dense oracle in
+float64; (b) the cut rule covers every entry of every block exactly once;
+(c) ``matvec`` with split plans against the unplanned product and the JAX
+``matvec``, ``prepare_tiled_matvec``'s plan for every bucket, and the npz
+round trip of a split plan, also from a file that holds a one-launch
+low-rank plan."""
 
 import dataclasses
 
@@ -31,13 +33,16 @@ from htool_tpu.ops.tiled_matvec import tiled_bucket_matvec as jax_tiled_bucket_m
 from htool_tpu.testing import create_sphere, laplace_kernel_symmetric
 import htool_tpu_torch as ht
 from htool_tpu_torch.convert import hmatrix_from_numpy
-from htool_tpu_torch.hmatrix.hmatrix import LowRankBucket
+from htool_tpu_torch.hmatrix import output as output_mod
+from htool_tpu_torch.hmatrix.hmatrix import DenseBucket, LowRankBucket
 from htool_tpu_torch.hmatrix.linalg import matvec, prepare_tiled_matvec
 from htool_tpu_torch.ops import cut as cut_mod
-from htool_tpu_torch.ops.cut import cut_rule, lr_split_wanted, lr_stage_shapes, panels
+from htool_tpu_torch.ops import tiled_matvec as tiled_mod
+from htool_tpu_torch.ops.cut import Cut, cut_rule, lr_stage_shapes, panels
 from htool_tpu_torch.ops.tiled_matvec import (
     _STAGE_B_CHUNK,
     SplitPlan,
+    TilePlan,
     _chunk_stand_width,
     build_tile_plan,
     build_tile_plan_lr_split,
@@ -95,8 +100,8 @@ def test_split_plan_matches_jax_split_plan_interpret(monkeypatch, width, side):
 @pytest.mark.parametrize("side", ["t", "s"])
 @pytest.mark.parametrize("width", sorted(WIDTHS))
 def test_split_plan_matches_one_launch_plan_f64(width, side, conj):
-    """The plain two-stage version against the plain one-launch version in
-    double precision (complex128 for the conjugated case): 1e-12."""
+    """The plain two-stage version against the dense oracle, block by block,
+    in double precision (complex128 for the conjugated case): 1e-12."""
     dtype = np.complex128 if conj else np.float64
     a, L = _bucket_arrays(WIDTHS[width], np.float64)
     if conj:
@@ -107,15 +112,11 @@ def test_split_plan_matches_one_launch_plan_f64(width, side, conj):
     if conj:
         x = x + 1j * rng.randn(L, 3)
     bucket = _torch_bucket(a)
-    one = build_tile_plan(bucket, side, L, 512)
     split = build_tile_plan_lr_split(bucket, side, L, 512)
     assert isinstance(split, SplitPlan) and split.stage_a.data is (
         bucket.V if side == "t" else bucket.U) and split.stage_b.data is (
         bucket.U if side == "t" else bucket.V)  # the bucket's own factors, no copies
-    want = tiled_bucket_matvec_reference(one, torch.as_tensor(x), conj=conj).numpy()
     got = tiled_bucket_matvec_reference(split, torch.as_tensor(x), conj=conj).numpy()
-    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-12
-    # dense oracle
     y = np.zeros((L, 3), dtype)
     for i in range(a["U"].shape[0]):
         B = a["U"][i] @ a["V"][i]
@@ -221,9 +222,9 @@ def _clear(H):
 @pytest.mark.parametrize("op", ["N", "T", "C"])
 @pytest.mark.parametrize("name", ["real", "complex"])
 def test_matvec_split_plans_match_one_launch_and_jax(pairs, monkeypatch, name, op, k):
-    """``matvec`` with split plans attached equals ``matvec`` with
-    one-launch plans and the JAX package's ``matvec`` (its XLA path): 1e-12
-    in double precision."""
+    """``matvec`` with split plans attached equals ``matvec`` without plans
+    (the unplanned terms) and the JAX package's ``matvec`` (its XLA path):
+    1e-12 in double precision."""
     Hj, Ht = pairs[name]
     monkeypatch.setenv("HTOOL_TPU_PALLAS", "0")
     rng = np.random.RandomState(3)
@@ -233,12 +234,13 @@ def test_matvec_split_plans_match_one_launch_and_jax(pairs, monkeypatch, name, o
     yj = np.asarray(hj.matvec(Hj, jnp.asarray(x), op=op))
     ys = {}
     try:
-        for split in (False, True):
+        for planned in (False, True):
             _clear(Ht)
-            prepare_tiled_matvec(Ht, tile_rows=128, lr_split=split)
-            assert all(isinstance(b.plan_t, SplitPlan) == split
-                       and isinstance(b.plan_s, SplitPlan) == split for b in Ht.lr_buckets)
-            ys[split] = matvec(Ht, torch.as_tensor(x), op=op).numpy()
+            if planned:
+                prepare_tiled_matvec(Ht, tile_rows=128)
+            assert all(isinstance(b.plan_t, SplitPlan) == planned
+                       and isinstance(b.plan_s, SplitPlan) == planned for b in Ht.lr_buckets)
+            ys[planned] = matvec(Ht, torch.as_tensor(x), op=op).numpy()
     finally:
         _clear(Ht)
     scale = np.abs(yj).max()
@@ -247,41 +249,64 @@ def test_matvec_split_plans_match_one_launch_and_jax(pairs, monkeypatch, name, o
 
 
 def test_prepare_picks_split_by_the_measured_rule(pairs):
-    """Without ``lr_split`` each low-rank bucket gets the plan
-    ``lr_split_wanted`` names for its number of blocks, shape, rank and
-    scalar size."""
+    """``prepare_tiled_matvec`` gives every low-rank bucket, whatever its
+    size, the split plan over its own U and V, and every dense bucket a
+    dense plan; ``build_tile_plan`` refuses a low-rank bucket."""
     _, Ht = pairs["real"]
     try:
         prepare_tiled_matvec(Ht, tile_rows=128)
-        kinds = set()
+        assert Ht.lr_buckets and Ht.dense_buckets
         for b in Ht.lr_buckets:
-            want = lr_split_wanted(b.n_blocks, *b.block_shape, b.rank_padded,
-                                   b.U.element_size())
-            assert isinstance(b.plan_t, SplitPlan) == isinstance(b.plan_s, SplitPlan) == want
-            kinds.add(want)
-        assert kinds  # the H-matrix has low-rank buckets
+            for side, plan in (("t", b.plan_t), ("s", b.plan_s)):
+                assert isinstance(plan, SplitPlan)
+                first, second = (b.V, b.U) if side == "t" else (b.U, b.V)
+                assert plan.stage_a.data is first and plan.stage_b.data is second
+        for b in Ht.dense_buckets:
+            assert type(b.plan_t) is type(b.plan_s) is TilePlan and b.plan_t.data is b.data
+        with pytest.raises(TypeError, match="build_tile_plan_lr_split"):
+            build_tile_plan(Ht.lr_buckets[0], "t", 500 + 512)
     finally:
         _clear(Ht)
-    # long terms run in two stages: 4 MB a bucket and up, or 128 KB a block
-    assert lr_split_wanted(367, 1568, 1568, 16, 4) and lr_split_wanted(2637, 224, 224, 16, 4)
-    assert lr_split_wanted(1, 3136, 3136, 512, 8) and lr_split_wanted(10, 6272, 6272, 8, 4)
-    # short ones in one launch, whatever the bytes of a block below 128 KB
-    assert not lr_split_wanted(100, 32, 32, 8, 4) and not lr_split_wanted(30, 416, 416, 32, 4)
-    # a caller that knows k = 1 splits only blocks of 1 MB and more
-    assert not lr_split_wanted(367, 1568, 1568, 16, 4, k=1)
-    assert lr_split_wanted(367, 1568, 1568, 16, 4, k=8)
-    assert lr_split_wanted(8, 3136, 3136, 512, 8, k=1)
 
 
-@pytest.mark.parametrize("name", ["real", "complex"])
-def test_split_plan_save_load_roundtrip(pairs, tmp_path, name):
+def _as_one_launch_file(path: str, H) -> None:
+    """Rewrite the file at ``path`` in the key layout of the port before
+    every low-rank plan was split: each low-rank bucket's plan of a side is
+    one ``*_tplan_<side>`` plan over whole blocks (P = 1, four blocks a
+    step), with no ``_split``, ``_a`` or ``_b`` keys."""
+    with np.load(path) as z:
+        payload = dict(z)
+    one_launch = lambda nb, R, C, item, trans, share=1.0: Cut(1, C if trans else R, 4)
+    for k, b in enumerate(H.lr_buckets):
+        prefix = f"l{k}_tplan_"
+        for key in [key for key in payload if key.startswith(prefix)]:
+            del payload[key]
+        stand = DenseBucket(data=torch.zeros((b.n_blocks, *b.block_shape)), t_off=b.t_off,
+                            s_off=b.s_off)  # the same schedule as the one-launch plan's
+        for side in ("t", "s"):
+            split = getattr(b, f"plan_{side}")
+            with mock.patch.object(tiled_mod, "cut_rule", one_launch):
+                one = build_tile_plan(stand, side, split.out_len, split.stage_b.T)
+            output_mod._pack_plan(payload, f"{prefix}{side}", one)
+    np.savez_compressed(path, **payload)
+
+
+@pytest.mark.parametrize("name, layout", [("real", "split"), ("complex", "split"),
+                                          ("real", "one_launch")],
+                         ids=["real", "complex", "real-one-launch-file"])
+def test_split_plan_save_load_roundtrip(pairs, tmp_path, name, layout):
     """``save_hmatrix``/``load_hmatrix`` round-trip a split plan: both stages'
-    schedules over the reloaded bucket's own U and V, and equal products."""
+    schedules over the reloaded bucket's own U and V, and equal products.  A
+    file that holds one-launch low-rank plans loads as the same split plans."""
     _, Ht = pairs[name]
     try:
-        prepare_tiled_matvec(Ht, tile_rows=128, lr_split=True)
+        prepare_tiled_matvec(Ht, tile_rows=128)
         path = str(tmp_path / "h.npz")
         ht.save_hmatrix(Ht, path)
+        if layout == "one_launch":
+            _as_one_launch_file(path, Ht)
+            with np.load(path) as z:
+                assert "l0_tplan_t_aux" in z and "l0_tplan_t_split" not in z
         back = ht.load_hmatrix(path, device="cpu")
         assert back.lr_buckets
         for ba, bb in zip(Ht.lr_buckets, back.lr_buckets):

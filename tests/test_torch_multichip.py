@@ -182,18 +182,26 @@ def test_initialize_raises_before_the_group_starts(monkeypatch):
     assert touched == []
 
 
-def test_distributed_operator_example_under_a_launcher():
+def test_distributed_operator_example_under_a_launcher(tmp_path):
     """``examples/torch_use_distributed_operator.py`` under ``torchrun`` (two
     ranks on the CPU over gloo): each rank holds half the partitions, and its
-    l2l and g2g products agree."""
+    l2l and g2g products agree.  Each rank's output goes to a file of its own
+    (``--log-dir``, ``--redirects 3``), so the two ranks' lines never
+    interleave in one pipe."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+         "--log-dir", str(tmp_path), "--redirects", "3",
          os.path.join(ROOT, "examples", "torch_use_distributed_operator.py"), "--device", "cpu",
          "--n", "1500"], cwd=ROOT, env=env, capture_output=True, text=True, timeout=180)
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.count("l2l == g2g: True") == 2, out.stdout[-3000:]
-    assert out.stdout.count("n_partitions                 4") == 2
+    logs = sorted(tmp_path.rglob("stdout.log"))
+    stdout = [p.read_text() for p in logs]
+    stderr = "".join(p.read_text() for p in tmp_path.rglob("stderr.log"))
+    assert out.returncode == 0, (out.stderr + stderr)[-3000:]
+    assert len(stdout) == 2, logs
+    for text in stdout:
+        assert text.count("l2l == g2g: True") == 1, text[-3000:]
+        assert text.count("n_partitions                 4") == 1, text[-3000:]
 
 
 def test_ppermute_starts_an_nccl_group_with_a_collective(tmp_path, monkeypatch):

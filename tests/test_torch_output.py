@@ -77,7 +77,7 @@ def test_save_load_roundtrip(pairs, tmp_path, sym, plans):
                     assert {id(p2.stage_a.data), id(p2.stage_b.data)} == {id(b2.U), id(b2.V)}
                     stages = list(zip(p, p2))
                 else:
-                    assert p2.data is b2.data if p2.kind == "dense" else p2.U is b2.U
+                    assert p2.data is b2.data
                     stages = [(p, p2)]
                 for q, q2 in stages:
                     for f in dataclasses.fields(q):

@@ -1,6 +1,7 @@
 """Tiled bucket matvec of the port against the JAX package: the host plan,
 the plain version of the Hopper kernel against the Pallas kernel (interpret
-mode), and H-matrix products on an H-matrix carried across."""
+mode; a low-rank bucket's split plan against the reference's one-launch
+plan), and H-matrix products on an H-matrix carried across."""
 
 import dataclasses
 
@@ -21,7 +22,9 @@ from htool_tpu_torch.convert import hmatrix_from_numpy
 from htool_tpu_torch.hmatrix.hmatrix import DenseBucket, LowRankBucket
 from htool_tpu_torch.hmatrix.linalg import _pad_in_of, matvec, matvec_user, prepare_tiled_matvec
 from htool_tpu_torch.ops.tiled_matvec import (
+    SplitPlan,
     build_tile_plan,
+    build_tile_plan_lr_split,
     tiled_bucket_matvec,
     tiled_bucket_matvec_reference,
 )
@@ -61,11 +64,13 @@ def _buckets(H):
 
 @pytest.mark.parametrize("side", ["t", "s"])
 def test_plan_parity(pair64, side):
-    """Same bucket, same tile_rows: every tile holds the same blocks in the
-    same order with the same in_off/out_rel."""
+    """Same dense bucket, same tile_rows: every tile holds the same blocks in
+    the same order with the same in_off/out_rel (a low-rank bucket's split
+    plan has no one-launch counterpart to compare)."""
     Hj, Ht = pair64
     out_len = N + _pad_in_of(Ht)
-    for bj, bt in zip(_buckets(Hj), _buckets(Ht)):
+    assert Ht.dense_buckets
+    for bj, bt in zip(Hj.dense_buckets, Ht.dense_buckets):
         pj = jax_build_tile_plan(bj, side, out_len, 128)
         pt = build_tile_plan(bt, side, out_len, 128)
         assert (pj.kind, pj.T, pj.E, pj.n_tiles, pj.out_len, pj.in_w, pj.out_w, pj.trans) == (
@@ -73,17 +78,14 @@ def test_plan_parity(pair64, side):
         assert pt.n_tiles > 1
         tile_j = np.repeat(np.asarray(pj.tile_of), pj.G)
         in_j, rel_j = np.asarray(pj.in_off), np.asarray(pj.out_rel)
-        blocks_j = np.asarray(pj.data if pj.kind == "dense" else pj.U)
+        blocks_j = np.asarray(pj.data)
         blk = pt.blk.numpy()
         tile_t = np.repeat(pt.tile_of.numpy(), pt.G)
         assert np.all(np.diff(pt.tile_of.numpy()) >= 0)
         first = pt.first_of.numpy()
         assert np.array_equal(first.astype(bool),
                               np.r_[True, np.diff(pt.tile_of.numpy()) > 0])
-        if pt.kind == "dense":
-            blocks_t = bt.data.numpy()
-        else:  # the JAX plan stores U transposed
-            blocks_t = bt.U.numpy().transpose(0, 2, 1)
+        blocks_t = bt.data.numpy()
         for t in range(pt.n_tiles):
             slots = np.nonzero((tile_t == t) & (blk >= 0))[0]
             js = np.nonzero(tile_j == t)[0]
@@ -106,7 +108,9 @@ def test_plan_parity(pair64, side):
 @pytest.mark.parametrize("side", ["t", "s"])
 def test_reference_matches_pallas_interpret(pair32, monkeypatch, kind, side):
     """The plain version of the Hopper kernel against the Pallas kernel run
-    in interpret mode (f32, blocks straddling 256-row tiles)."""
+    in interpret mode (f32, blocks straddling 256-row tiles): a dense bucket's
+    plan against the reference's, a low-rank bucket's split plan against the
+    reference's one-launch plan."""
     Hj, Ht = pair32
     pick = lambda H: max(H.dense_buckets if kind == "dense" else H.lr_buckets,
                          key=lambda b: b.n_blocks)
@@ -118,7 +122,7 @@ def test_reference_matches_pallas_interpret(pair32, monkeypatch, kind, side):
     yj = np.asarray(jax_tiled_bucket_matvec(jax_build_tile_plan(bj, side, out_len, 128),
                                             jnp.asarray(x), jnp.float32))
     jax.clear_caches()
-    pt = build_tile_plan(bt, side, out_len, 128)
+    pt = (build_tile_plan if kind == "dense" else build_tile_plan_lr_split)(bt, side, out_len, 128)
     yt = tiled_bucket_matvec_reference(pt, torch.as_tensor(x)).numpy()
     assert yt.shape == yj.shape == (out_len, 3)
     assert np.linalg.norm(yt - yj) / np.linalg.norm(yj) <= 1e-5
@@ -127,9 +131,12 @@ def test_reference_matches_pallas_interpret(pair32, monkeypatch, kind, side):
 
 
 def _kernel_walk(plan, x):
-    """The CUDA kernels' traversal in Python: step i walks slots i·G ..
-    i·G + G - 1, skips blk < 0, and adds panel blk % P of op(B[blk // P])
-    · x window straight into y at row out_off (the fold, done as it goes)."""
+    """The CUDA kernel's traversal in Python: step i walks slots i·G ..
+    i·G + G - 1, skips blk < 0, and adds panel blk % P of op(D[blk // P])
+    · x window straight into y at row out_off (the fold, done as it goes).
+    A split plan walks stage A into t, then stage B from t."""
+    if isinstance(plan, SplitPlan):
+        return _kernel_walk(plan.stage_b, _kernel_walk(plan.stage_a, x))
     y = torch.zeros((plan.out_len, x.shape[1]), dtype=x.dtype)
     blk = plan.blk.tolist()
     for i in range(plan.n_steps):
@@ -138,10 +145,7 @@ def _kernel_walk(plan, x):
                 continue
             b, p = divmod(blk[s], plan.P)
             xw = x[int(plan.in_off[s]) : int(plan.in_off[s]) + plan.in_w]
-            if plan.kind == "dense":
-                B = plan.data[b]
-            else:
-                B = plan.U[b] @ plan.V[b]
+            B = plan.data[b]
             op = B.T if plan.trans else B
             r = int(plan.out_off[s])
             rows = op[p * plan.out_w : (p + 1) * plan.out_w]  # the last panel is clipped
@@ -155,7 +159,8 @@ def test_kernel_walk_matches_reference(pair64, side):
     out_len = N + _pad_in_of(Ht)
     x = torch.as_tensor(np.random.RandomState(5).randn(out_len, 2))
     for b in _buckets(Ht):
-        plan = build_tile_plan(b, side, out_len, 128)
+        build = build_tile_plan if isinstance(b, DenseBucket) else build_tile_plan_lr_split
+        plan = build(b, side, out_len, 128)
         np.testing.assert_allclose(_kernel_walk(plan, x).numpy(),
                                    tiled_bucket_matvec_reference(plan, x).numpy(),
                                    rtol=1e-12, atol=1e-12)
@@ -163,7 +168,8 @@ def test_kernel_walk_matches_reference(pair64, side):
 
 @pytest.mark.parametrize("trans", [False, True])
 def test_wide_blocks_extension_beyond_tile(trans):
-    """Blocks wider than a tile (E > T) fold correctly, dense and low rank."""
+    """Blocks wider than a tile fold correctly, dense and low rank: cut into
+    panels by bytes, which straddle the tiles."""
     rng = np.random.RandomState(6)
     nb, w, r, L = 6, 640, 8, 3000
     offs = torch.as_tensor(rng.randint(0, L - w, nb))
@@ -178,12 +184,11 @@ def test_wide_blocks_extension_beyond_tile(trans):
         B = D[i].T if trans else D[i]
         want[o : o + w] += B @ x[q : q + w]
     side = "s" if trans else "t"
-    for bucket in (DenseBucket(data=D, t_off=offs, s_off=offs2),
-                   LowRankBucket(U=U, V=V, t_off=offs, s_off=offs2)):
-        plan = build_tile_plan(bucket, side, L + w, 128)
-        # a low-rank plan entry is a whole block (E > T); a dense block this
-        # large is cut into panels by bytes, which straddle the tiles instead
-        assert w > plan.T and (plan.E > plan.T if plan.kind == "lr" else plan.P > 1)
+    for plan in (build_tile_plan(DenseBucket(data=D, t_off=offs, s_off=offs2), side, L + w, 128),
+                 build_tile_plan_lr_split(LowRankBucket(U=U, V=V, t_off=offs, s_off=offs2), side,
+                                          L + w, 128)):
+        assert w > (plan.stage_b if isinstance(plan, SplitPlan) else plan).T
+        assert isinstance(plan, SplitPlan) or plan.P > 1
         got = tiled_bucket_matvec_reference(plan, x)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-10)
         np.testing.assert_allclose(_kernel_walk(plan, x).numpy(), want.numpy(),

@@ -17,8 +17,8 @@ Phases (one JSON line each, also appended to ``<out>/torch_dist_probe.jsonl``):
   and T and l2l N at k = 1 and 8, one launch per bucket term over all
   partitions against the per-partition route (each partition's block row
   through ``linalg.matvec``, one launch per term and partition): the
-  difference, the times, the launches a product, and the low-rank terms
-  whose route (one launch or two stages) the folding changes.
+  difference, the times, and the wrapper calls and CUDA launches a product
+  (a low-rank term is two CUDA launches).
 - ``blr``: cell 6's subdomains (sphere n = 20,000, 8 partitions, overlap
   0.05) factored by BLR (ε 1e-4, block 256), the stacked solve of all 8
   against each subdomain's ``blr_solve`` in float32 and float64 (the
@@ -136,7 +136,6 @@ def phase_products(dev, seed, n=100_000):
     import htool_tpu_torch as ht
     from htool_tpu_torch.hmatrix import linalg
     from htool_tpu_torch.ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
-    from htool_tpu_torch.ops.cut import lr_split_wanted
     from htool_tpu_torch.parallel import build_distributed_hmatrix, default_mesh
     from htool_tpu_torch.testing import create_sphere, laplace_kernel_symmetric
 
@@ -158,11 +157,13 @@ def phase_products(dev, seed, n=100_000):
         return sum(linalg.matvec(D._local(i), xs[i], op) for i in range(P))
 
     def launches(fn):
-        for w in (dense_bucket_matvec, lr_bucket_matvec):
-            w.launches = 0
+        """[wrapper calls, CUDA launches] of one product."""
+        wrappers = (dense_bucket_matvec, lr_bucket_matvec)
+        for w in wrappers:
+            w.launches = w.cuda_launches = 0
         fn()
         torch.cuda.synchronize()
-        return dense_bucket_matvec.launches + lr_bucket_matvec.launches
+        return [sum(w.launches for w in wrappers), sum(w.cuda_launches for w in wrappers)]
 
     rng = np.random.RandomState(seed)
     out = dict(phase="products", n=n, partitions=P, m_loc_max=m,
@@ -183,17 +184,6 @@ def phase_products(dev, seed, n=100_000):
                 rel_folded_vs_per_partition=rel(folded(), parts()),
                 g2g_ms=event_ms(lambda op=op: D.matvec(x, op=op)))
         out["products"][f"l2l_N/k{k}"] = dict(l2l_ms=event_ms(lambda: D.matvec_local(x_loc)))
-        # low-rank terms whose route the folding changes, at this k
-        switched = []
-        for b in D.lr_buckets:
-            nb, bm, r = (int(s) for s in b.U.shape[1:])
-            bn = int(b.V.shape[3])
-            one, folded_split = (lr_split_wanted(nb, bm, bn, r, b.U.element_size(), k),
-                                 lr_split_wanted(P * nb, bm, bn, r, b.U.element_size(), k))
-            if one != folded_split:
-                switched.append(dict(nb=nb, bm=bm, bn=bn, r=r, per_partition_split=one,
-                                     folded_split=folded_split))
-        out[f"lr_route_changes_k{k}"] = switched
     out.update(n_dense_buckets=len(D.dense_buckets), n_lr_buckets=len(D.lr_buckets))
     emit(out)
 

@@ -4,32 +4,25 @@
 Run from the root of a checkout on a machine with a Hopper GPU:
 
     python3 tools/torch_kernel_probe.py [--n 100000] [--out out_dir] [--phases check,real,...]
-    python3 tools/torch_kernel_probe.py --fit out_dir/torch_kernel_probe.jsonl   (no GPU)
 
 Phases (each prints JSON lines; with ``--out`` they are also written to
 ``torch_kernel_probe.jsonl`` there):
 
 - ``build``: compile the kernels, print ptxas' registers and spills;
-- ``check``: every route of the streaming kernels (dense plans, one-launch
-  and split low-rank plans, unplanned dense terms, one-launch and two-stage
-  unplanned low-rank terms) against its plain version, on small random
+- ``check``: every route of the streaming kernels (dense plans, split
+  low-rank plans, unplanned dense terms, two-stage unplanned low-rank terms)
+  against its plain version, on small random
   buckets (float64 and complex128 at k >= 4 on the FP64 tensor cores): 4 dtypes, both
   orientations, conj, k = 1, 2, 3, 5, 8, 11, aligned and unaligned shapes;
 - ``real``: the real flagship H-matrix (n points on a sphere, f32, leaf 256,
   64 partitions): per bucket and k = 1, 8, the streaming kernel on the dense
-  bucket and each low-rank bucket one-launch against split; the same
-  buckets cast to complex64, float64 and complex128;
+  bucket and on each low-rank bucket's split plan; the same buckets cast to
+  complex64, float64 and complex128;
 - ``wide``: random complex64 low-rank buckets of the hermitian path's
-  shapes, unplanned: one-launch against two-stage, with the ``torch.bmm``
-  yardstick;
-- ``rule``: one launch against two stages, planned and unplanned, on random
-  low-rank buckets as the bytes of a block (1 KB - 400 KB) and of the whole
-  bucket (256 KB - 64 MB) vary, at k = 1 and 8: the time per call in a loop
-  of calls (the host's pace where the launch is shorter than a call) and the
-  kernels' own durations from a profiler trace; the measurements behind
-  ``ops/cut.py::lr_split_wanted``;
+  shapes, unplanned, two stages, against their plain version and the
+  ``torch.bmm`` yardstick;
 - ``product``: the symmetric unplanned product, host enqueue time against
-  the whole, with the rule, all one-launch and all two-stage;
+  the whole;
 - ``devtime``: kernel durations of the symmetric path's terms from a
   profiler trace;
 - ``target``: the real flagship's and the wide buckets' times as the byte
@@ -66,50 +59,14 @@ def emit(obj):
             f.write(line + "\n")
 
 
-def rule_regret(path: str) -> None:
-    """From the ``rule`` rows of an earlier run's JSON lines (no GPU needed):
-    the mean microseconds a term loses against the faster of its two routes,
-    by the kernels' own durations and by the time per call in a loop, when
-    every term takes one launch, when every term takes two stages, and under
-    ``ops/cut.py::lr_split_wanted``."""
-    from htool_tpu_torch.ops.cut import lr_split_wanted
-
-    rows = [r for r in map(json.loads, open(path)) if r.get("phase") == "rule"]
-    item = {"torch.float32": 4, "torch.complex64": 8, "torch.complex128": 16}
-    choices = {"one_launch": lambda r, k: False, "two_stages": lambda r, k: True,
-               "rule": lambda r, k: lr_split_wanted(r["nb"], r["bm"], r["bm"], r["r"],
-                                                    item[r["dtype"]], k)}
-    for one, two, knows_k in (("planned_one", "planned_split", False),
-                              ("unplanned_one", "unplanned_two", True)):
-        for k in (1, 8):
-            out = {}
-            for name, choose in choices.items():
-                lost = {"_dev_us": [], "_us": []}
-                for r in rows:
-                    if r["k"] != k or min(r[one + "_dev_us"], r[two + "_dev_us"]) <= 0:
-                        continue  # a trace that missed the launches
-                    took = two if choose(r, k if knows_k else None) else one
-                    for sfx, acc in lost.items():
-                        acc.append(r[took + sfx] - min(r[one + sfx], r[two + sfx]))
-                out[name] = dict(device_us=sum(lost["_dev_us"]) / len(lost["_dev_us"]),
-                                 per_call_us=sum(lost["_us"]) / len(lost["_us"]))
-            emit(dict(phase="rule_regret", routes=one.split("_")[0], k=k,
-                      cases=len(lost["_us"]), mean_loss=out))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--fit", default=None, metavar="JSONL",
-                    help="score lr_split_wanted on the rule rows of an earlier run and exit")
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     ap.add_argument("--phases", default="build,check,real,wide,target,floor")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
-    if args.fit:
-        rule_regret(args.fit)
-        return 0
 
     import torch
 
@@ -182,7 +139,7 @@ def main(argv=None) -> int:
     def rel(a, b):
         return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-300))
 
-    def unplanned(bucket, xp, trans, L, conj=False, split=None, plain=False):
+    def unplanned(bucket, xp, trans, L, conj=False, plain=False):
         in_off, out_off = ((bucket.t_off, bucket.s_off) if trans
                            else (bucket.s_off, bucket.t_off))
         if isinstance(bucket, ht.DenseBucket):
@@ -191,8 +148,7 @@ def main(argv=None) -> int:
         if plain:
             return lr_bucket_matvec_reference(bucket.U, bucket.V, in_off, out_off, xp, trans, L,
                                               conj=conj)
-        return lr_bucket_matvec(bucket.U, bucket.V, in_off, out_off, xp, trans, L, conj=conj,
-                                split=split)
+        return lr_bucket_matvec(bucket.U, bucket.V, in_off, out_off, xp, trans, L, conj=conj)
 
     # ---------------- check ----------------
     if "check" in phases:
@@ -209,20 +165,15 @@ def main(argv=None) -> int:
                 bucket = rand_bucket(kind, nb, bm, bn, r, dtype, L)
                 for side in ("t", "s"):
                     trans = side == "s"
-                    routes = {"plan": build_tile_plan(bucket, side, L)}
-                    if kind == "lr":
-                        routes["split"] = build_tile_plan_lr_split(bucket, side, L)
+                    build = build_tile_plan if kind == "dense" else build_tile_plan_lr_split
+                    routes = {"plan": build(bucket, side, L)}
                     for conj in ((False, True) if dtype.is_complex else (False,)):
                         for k in (1, 2, 3, 5, 8, 11):
                             xp = randn(L, k, dtype=dtype)
                             ref = tiled_bucket_matvec_reference(routes["plan"], xp, conj=conj)
                             got = {name: tiled_bucket_matvec(pl, xp, conj=conj)
                                    for name, pl in routes.items()}
-                            if kind == "lr":
-                                got["unplanned_one"] = unplanned(bucket, xp, trans, L, conj, False)
-                                got["unplanned_two"] = unplanned(bucket, xp, trans, L, conj, True)
-                            else:
-                                got["unplanned"] = unplanned(bucket, xp, trans, L, conj)
+                            got["unplanned"] = unplanned(bucket, xp, trans, L, conj)
                             sync()
                             for name, y in got.items():
                                 e = rel(y, ref)
@@ -282,8 +233,7 @@ def main(argv=None) -> int:
             out["stream"] = event_ms(lambda: tiled_bucket_matvec(pn, xp))
             out["cut"] = [pn.P, pn.out_w, pn.G, pn.n_steps]
         else:
-            p1, p2 = build_tile_plan(bucket, side, L), build_tile_plan_lr_split(bucket, side, L)
-            out["one_launch"] = event_ms(lambda: tiled_bucket_matvec(p1, xp))
+            p2 = build_tile_plan_lr_split(bucket, side, L)
             out["split"] = event_ms(lambda: tiled_bucket_matvec(p2, xp))
             out["cut"] = [[p.P, p.out_w, p.G, p.n_steps] for p in p2]
         return out
@@ -311,65 +261,6 @@ def main(argv=None) -> int:
             emit(dict(phase="real_sums", dtype=str(dtype),
                       sums={f"k{k}/{name}": v for (k, name), v in sorted(sums.items())}))
 
-    # ---------------- one launch against two stages: the rule's measurements ----------------
-    if "rule" in phases:
-        from torch.profiler import ProfilerActivity, profile
-
-        L = 50_000
-        names = {"planned_one": "tiled_matvec_kernel", "planned_split": "stream_matvec_kernel",
-                 "unplanned_one": "bucket_matvec_kernel", "unplanned_two": "bucket_stream_kernel"}
-        shapes = ((64, 2), (64, 4), (64, 8), (128, 8), (128, 16), (224, 16), (416, 16), (416, 32),
-                  (800, 32), (1568, 16), (128, 128), (416, 99))
-        for dtype in (torch.float32, torch.complex64, torch.complex128):
-            item = torch.empty((), dtype=dtype).element_size()
-            for bm, r in shapes:
-                per = 2 * bm * r * item
-                seen = set()
-                for total in (1 << 18, 1 << 20, 1 << 22, 1 << 24, 1 << 26):
-                    nb = max(1, total // per)
-                    if nb in seen:
-                        continue
-                    seen.add(nb)
-                    b = rand_bucket("lr", nb, bm, bm, r, dtype, L)
-                    # offsets on a grid of block rows, as a cluster's blocks
-                    # lie in an H-matrix: consecutive blocks share their rows
-                    ncol = L // bm - 1
-                    i = torch.arange(nb, device=dev)
-                    b = dataclasses.replace(b, t_off=bm * ((i // ncol) % ncol), s_off=bm * (i % ncol))
-                    for trans in (False, True):
-                        side = "s" if trans else "t"
-                        p1 = build_tile_plan(b, side, L)
-                        p2 = build_tile_plan_lr_split(b, side, L)
-                        for k in (1, 8):
-                            xp = randn(L, k, dtype=dtype)
-                            y = torch.zeros((L, k), dtype=dtype, device=dev)
-                            in_off, out_off = (b.t_off, b.s_off) if trans else (b.s_off, b.t_off)
-                            calls = {
-                                "planned_one": lambda: tiled_bucket_matvec(p1, xp, out=y),
-                                "planned_split": lambda: tiled_bucket_matvec(p2, xp, out=y),
-                                "unplanned_one": lambda: lr_bucket_matvec(
-                                    b.U, b.V, in_off, out_off, xp, trans, L, out=y, split=False),
-                                "unplanned_two": lambda: lr_bucket_matvec(
-                                    b.U, b.V, in_off, out_off, xp, trans, L, out=y, split=True),
-                            }
-                            row = dict(phase="rule", dtype=str(dtype), nb=nb, bm=bm, r=r,
-                                       block_bytes=per, bucket_bytes=nb * per, trans=trans, k=k,
-                                       bound_us=1e6 * nb * per / 3.35e12)
-                            for name, fn in calls.items():
-                                row[name + "_us"] = 1e3 * sorted(
-                                    event_ms(fn, reps=15) for _ in range(3))[1]
-                            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                                for fn in calls.values():
-                                    for _ in range(5):
-                                        fn()
-                                sync()
-                            for name, kern in names.items():
-                                row[name + "_dev_us"] = sum(
-                                    e.device_time_total for e in prof.key_averages()
-                                    if kern in e.key) / 5
-                            emit(row)
-                    del b
-
     # ---------------- wide low-rank buckets, unplanned ----------------
     WIDE = [(8, 3136, 3136, 512), (64, 800, 800, 256), (10, 6272, 6272, 8), (32, 1568, 1568, 99),
             (200, 416, 416, 32)]
@@ -383,15 +274,14 @@ def main(argv=None) -> int:
                     xp = randn(L, k, dtype=dtype)
                     row = dict(phase="wide", dtype=str(dtype), nb=nb, bm=bm, bn=bn, r=r,
                                trans=trans, k=k, bound_ms=bucket_bytes(b) / 3.35e9,
-                               one_launch=event_ms(lambda: unplanned(b, xp, trans, L, split=False)),
-                               two_stage=event_ms(lambda: unplanned(b, xp, trans, L, split=True)))
+                               two_stage=event_ms(lambda: unplanned(b, xp, trans, L)))
                     if bmm:
                         in_off = b.t_off if trans else b.s_off
                         xg = xp[in_off[:, None] + torch.arange(bm if trans else bn, device=dev)]
                         ops = [b.V, b.U] if not trans else [b.U.transpose(1, 2), b.V.transpose(1, 2)]
                         row["bmm"] = event_ms(lambda: torch.bmm(ops[1], torch.bmm(ops[0], xg)))
-                    y2 = unplanned(b, xp, trans, L, split=True)
-                    row["rel_two_vs_one"] = rel(y2, unplanned(b, xp, trans, L, split=False))
+                    row["rel_vs_plain"] = rel(unplanned(b, xp, trans, L),
+                                              unplanned(b, xp, trans, L, plain=True))
                     emit(row)
             del b
 
@@ -403,7 +293,6 @@ def main(argv=None) -> int:
     # ---------------- the unplanned symmetric product: host against device ----------------
     if "product" in phases:
         from htool_tpu_torch.hmatrix.linalg import matvec
-        from htool_tpu_torch.ops import bucket_matvec as bucket_ops
 
         n = args.n
         pts = create_sphere(n, seed=0)
@@ -412,25 +301,18 @@ def main(argv=None) -> int:
         tree8 = ht.build_cluster_tree(pts, max_leaf_size=256, n_partitions=8)
         HS = ht.build_hmatrix(gen, tree8, epsilon=1e-3, eta=10.0, symmetry="S", UPLO="L")
         sync()
-        saved = bucket_ops.lr_split_wanted
         for k in (1, 8):
             xr = randn(n, k, dtype=torch.float32)
-            for name, rule in (("rule", saved), ("one_launch", lambda *a: False),
-                               ("two_stage", lambda *a: True)):
-                bucket_ops.lr_split_wanted = rule
-                bucket_ops._lr_route.cache_clear()
+            matvec(HS, xr)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(20):
                 matvec(HS, xr)
-                sync()
-                t0 = time.perf_counter()
-                for _ in range(20):
-                    matvec(HS, xr)
-                t_host = (time.perf_counter() - t0) / 20  # the host's enqueue time
-                sync()
-                t_all = (time.perf_counter() - t0) / 20
-                emit(dict(phase="product", symmetry="S", k=k, lr_route=name,
-                          host_enqueue_ms=1e3 * t_host, product_ms=1e3 * t_all))
-        bucket_ops.lr_split_wanted = saved
-        bucket_ops._lr_route.cache_clear()
+            t_host = (time.perf_counter() - t0) / 20  # the host's enqueue time
+            sync()
+            t_all = (time.perf_counter() - t0) / 20
+            emit(dict(phase="product", symmetry="S", k=k, host_enqueue_ms=1e3 * t_host,
+                      product_ms=1e3 * t_all))
         del HS
 
     # ---------------- device time of small terms ----------------
@@ -451,18 +333,16 @@ def main(argv=None) -> int:
                            bound_us=1e6 * bucket_bytes(b) / 3.35e12)
                 for trans in (False, True):
                     in_off, out_off = (b.t_off, b.s_off) if trans else (b.s_off, b.t_off)
-                    for split in (False, True):
-                        call = lambda: lr_bucket_matvec(b.U, b.V, in_off, out_off, xp, trans, L,
-                                                        out=y, split=split)
-                        call()
+                    call = lambda: lr_bucket_matvec(b.U, b.V, in_off, out_off, xp, trans, L, out=y)
+                    call()
+                    sync()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(10):
+                            call()
                         sync()
-                        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                            for _ in range(10):
-                                call()
-                            sync()
-                        us = sum(e.device_time_total for e in prof.key_averages()
-                                 if "matvec_kernel" in e.key or "stream_kernel" in e.key) / 10
-                        row[f"{'T' if trans else 'N'}/{'two_stage' if split else 'one_launch'}_us"] = us
+                    row[f"{'T' if trans else 'N'}/two_stage_us"] = sum(
+                        e.device_time_total for e in prof.key_averages()
+                        if "stream_kernel" in e.key) / 10
                 emit(row)
             del b
 
@@ -493,7 +373,7 @@ def main(argv=None) -> int:
                 xp = randn(L, 8, dtype=torch.complex64)
                 for trans in (False, True):
                     sums[f"wide/{bm}r{r}/trans{int(trans)}/k8"] = event_ms(
-                        lambda: unplanned(b, xp, trans, L, split=True))
+                        lambda: unplanned(b, xp, trans, L))
                 del b
             emit(dict(phase="target", target_kib=target, ms=sums))
         cut_mod._TARGET_BYTES = saved
@@ -510,16 +390,12 @@ def main(argv=None) -> int:
         calls = {
             "tiled_dense": lambda pl=build_tile_plan(tiny_d, "t", L): tiled_bucket_matvec(
                 pl, xp, out=y),
-            "tiled_lr_one_launch": lambda pl=build_tile_plan(tiny_l, "t", L): tiled_bucket_matvec(
-                pl, xp, out=y),
             "tiled_lr_split": lambda pl=build_tile_plan_lr_split(tiny_l, "t", L):
                 tiled_bucket_matvec(pl, xp, out=y),
             "unplanned_dense": lambda: dense_bucket_matvec(
                 tiny_d.data, tiny_d.s_off, tiny_d.t_off, xp, False, L, out=y),
-            "unplanned_lr_one_launch": lambda: lr_bucket_matvec(
-                tiny_l.U, tiny_l.V, tiny_l.s_off, tiny_l.t_off, xp, False, L, out=y, split=False),
             "unplanned_lr_two_stage": lambda: lr_bucket_matvec(
-                tiny_l.U, tiny_l.V, tiny_l.s_off, tiny_l.t_off, xp, False, L, out=y, split=True),
+                tiny_l.U, tiny_l.V, tiny_l.s_off, tiny_l.t_off, xp, False, L, out=y),
             "torch_add_": lambda: y.add_(1.0),
         }
         res = {}

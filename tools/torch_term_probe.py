@@ -124,16 +124,12 @@ def main(argv=None) -> int:
                 stages = [("A", plan.stage_a, first, True), ("B", plan.stage_b, second, False)]
                 mid = torch.zeros((plan.t_len, 1), dtype=plan.dtype, device=dev)
             else:
-                stages = [("-", plan, "data" if dense else "UV", False)]
+                stages = [("-", plan, "data", False)]
                 mid = None
             for name, st, which, store in stages:
-                mats = [bucket.U, bucket.V] if which == "UV" else [getattr(bucket, which)]
-                stored = sum(a.numel() * a.element_size() for a in mats)
-                if which == "UV":
-                    live = (live_bytes(*live_extent(bucket, "U"), item)
-                            + live_bytes(*live_extent(bucket, "V"), item))
-                else:
-                    live = live_bytes(*live_extent(bucket, which), item)
+                mat = getattr(bucket, which)
+                stored = mat.numel() * mat.element_size()
+                live = live_bytes(*live_extent(bucket, which), item)
                 row = dict(phase="term", **head, term=term, stage=name, matrix=which,
                            P=int(st.P), cut=int(st.out_w), G=int(st.G), n_steps=int(st.n_steps),
                            stored_mb=stored / 1e6, live_mb=live / 1e6)

@@ -12,8 +12,8 @@ The rows are ``bench.py``'s (``_row_registry``, in ``_row_names``' order)
 with its metric names and accuracy contracts:
 
 - ``kernel_smoke``: a tiny exercise of every product route (planned dense N
-  and T, planned low rank in one launch and split in two stages, a planned
-  complex64 dense term, the unplanned dense and low-rank terms; 8 blocks of
+  and T, planned low rank split in two stages, a planned complex64 dense
+  term, the unplanned dense and low-rank terms; 8 blocks of
   256², rank 8, k = 8) against a float64 NumPy oracle, rel < 1e-4; each
   route's CUDA launches are counted and must be nonzero on the card;
 - ``matvec_n10000``, ``matvec_n100000``: sphere, float32, leaf 256, ε 1e-3,
@@ -226,8 +226,6 @@ def _row_kernel_smoke(row: Row) -> dict:
             build_tile_plan(dense(data), "t", L), t(x)), lambda: oracle(data, x)),
         "dense_tiled_trans": (tiled_bucket_matvec, lambda: tiled_bucket_matvec(
             build_tile_plan(dense(data), "s", L), t(x)), lambda: oracle(data, x, trans=True)),
-        "lr_tiled": (tiled_bucket_matvec, lambda: tiled_bucket_matvec(
-            build_tile_plan(lr, "t", L), t(x)), lambda: lr_ref),
         "lr_split_tiled": (tiled_bucket_matvec, lambda: tiled_bucket_matvec(
             build_tile_plan_lr_split(lr, "t", L), t(x)), lambda: lr_ref),
         "complex_tiled": (tiled_bucket_matvec, lambda: tiled_bucket_matvec(
