@@ -38,6 +38,20 @@ Phases (each prints one JSON line):
    blocks, odd widths with rank 99 (no 16-byte alignment: the element-wise
    copy path), rank 1, a bucket of one 6272 x 6272 block, k = 1, 2, 3, 5, 8
    and 11;
+5b. pair kernel vs plain — the same shapes as mirror buckets of a square
+   operator, f32, f64, c64 and c128, k = 1, 2, 3, 5, 8 and 11, each
+   conjugation: the pair launch (a block and its mirror in one launch)
+   against its plain version and against the two per-term kernels; a
+   shape the pass does not take (a rank too wide for a cluster of 8 CTAs)
+   is listed, and must keep per-term plans;
+5c. the pair pass at the cells' shapes — the stream cells' operators (the
+   100k sphere, leaf 100, eta 100, eps 1e-3, 'S', 'L') in float32 and
+   complex64: one planned product at k = 1 and at k = 8 launches the pair
+   kernel once a mirror bucket and the per-term kernel once for each other
+   bucket (the pair row's main-path launches); each mirror bucket's pair
+   plan against its plain version and against its two per-term plans at
+   k = 1 and 8, with the pair launch's, the two per-term launches' and the
+   plain version's times;
 6. profile — ``torch.profiler`` windows over the
    warm solve, 20 products at k = 1 and at k = 8, a warm assembly and a warm
    Schwarz set-up.  Device busy time is the union of the kernel, memcpy and
@@ -181,13 +195,15 @@ it starts and the largest tensors.  The script's wall time is a line of
 its own before the kernels line.
 
 The ``kernels`` line before the last lists every entry point (three kernels
-× float32, float64, complex64, complex128, and the planned kernel's split
-two-stage low-rank terms apart) with its launches on the main paths (phases
-3, 7, 11, 12, 16, 17 and 21 – 26; also split by k), its time summed over
-the main path's terms at k = 8 (and, under ``k1``, at k = 1) beside the plain version's, its bound (bytes moved
-once over 3.35 TB/s, a split term's staging tensor written and read once
-included, or operations over the peak rate of the type, whichever is
-larger) and, as the library yardstick, ``torch.bmm`` on windows gathered
+× float32, float64, complex64, complex128, the planned kernel's split
+two-stage low-rank terms apart, and the pair kernel × float32 and
+complex64, the dtypes of the cells that run it) with its launches on the
+main paths (phases 3, 5c, 7, 11, 12, 16, 17 and 21 – 26; also split by k),
+its time summed over the main path's terms at k = 8 (and, under ``k1``, at
+k = 1) beside the plain version's, its bound (bytes moved once over
+3.35 TB/s, a split term's staging tensor written and read once included,
+a pair launch's live coefficients once, or operations over the peak rate
+of the type, whichever is larger) and, as the library yardstick, ``torch.bmm`` on windows gathered
 beforehand (gather and scatter excluded: no single PyTorch call computes a
 bucket term).
 
@@ -247,6 +263,7 @@ def cg_graphs_check(n: int, dtype, device="cuda", seed: int = 0, reps: int = 20,
     import htool_tpu_torch as ht
     from htool_tpu_torch.hmatrix.linalg import prepare_tiled_matvec
     from htool_tpu_torch.ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
+    from htool_tpu_torch.ops.pair_matvec import pair_bucket_matvec
     from htool_tpu_torch.ops.tiled_matvec import tiled_bucket_matvec
     from htool_tpu_torch.solvers import DDMSolver, ddm
     from htool_tpu_torch.testing import create_sphere, laplace_kernel_symmetric
@@ -266,7 +283,8 @@ def cg_graphs_check(n: int, dtype, device="cuda", seed: int = 0, reps: int = 20,
     def counts():
         c = counters()
         return dict(launches=tiled_bucket_matvec.cuda_launches + dense_bucket_matvec.cuda_launches
-                    + lr_bucket_matvec.cuda_launches, syncs=c.get("syncs", 0),
+                    + lr_bucket_matvec.cuda_launches + pair_bucket_matvec.cuda_launches,
+                    syncs=c.get("syncs", 0), pairs=c.get("product_pairs_fused", 0),
                     steps=c.get("krylov_graph_steps", 0),
                     captures=c.get("krylov_graph_captures", 0))
 
@@ -437,6 +455,7 @@ def main(argv=None) -> int:
 
     import htool_tpu_torch as ht
     import htool_tpu_torch.ops.bucket_matvec as bucket_ops
+    import htool_tpu_torch.ops.pair_matvec as pair_ops
     import htool_tpu_torch.ops.tiled_matvec as tiled_ops
     from htool_tpu_torch.hmatrix import linalg
     from htool_tpu_torch.hmatrix.linalg import matvec, matvec_user, prepare_tiled_matvec
@@ -447,6 +466,11 @@ def main(argv=None) -> int:
         lr_bucket_matvec,
         lr_bucket_matvec_reference,
     )
+    from htool_tpu_torch.ops.pair_matvec import (
+        build_pair_plan,
+        pair_bucket_matvec,
+        pair_bucket_matvec_reference,
+    )
     from htool_tpu_torch.ops.tiled_matvec import (
         SplitPlan,
         build_tile_plan,
@@ -456,6 +480,7 @@ def main(argv=None) -> int:
     )
     from htool_tpu_torch import native
     from htool_tpu_torch.solvers import DDMSolver, build_geneo_coarse_space, build_geometric_overlap
+    from htool_tpu_torch.utils.profiling import counters
     from htool_tpu_torch.testing import (
         create_sphere,
         grid_laplacian,
@@ -466,7 +491,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
-    wrappers = (tiled_bucket_matvec, dense_bucket_matvec, lr_bucket_matvec)
+    wrappers = (tiled_bucket_matvec, dense_bucket_matvec, lr_bucket_matvec, pair_bucket_matvec)
     DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
 
     # launches of each entry point on the main paths: every count is set to 0
@@ -947,6 +972,161 @@ def main(argv=None) -> int:
     emit(dict(phase="kernel_edges", shapes=edge_shapes, ks=EDGE_KS,
               worst_rel=tiled_edges((torch.float32, torch.float64))))
 
+    # ---------------- 5b. pair kernel vs plain ----------------
+    # phase 5's shapes as mirror buckets of a square operator: the pair
+    # launch against its plain version and against the two per-term kernels
+    def pair_edges():
+        worst_of, per_term = {}, []
+        for bkind, (bm, bn, r, nb) in EDGE_SHAPES:
+            for dtype in DTYPES:
+                offs = dict(t_off=torch.randint(0, L - bm, (nb,), device=dev, generator=gen_r),
+                            s_off=torch.randint(0, L - bn, (nb,), device=dev, generator=gen_r),
+                            mirror=True)
+                bucket = (ht.DenseBucket(data=randn(nb, bm, bn, dtype=dtype), **offs)
+                          if bkind == "dense"
+                          else ht.LowRankBucket(U=randn(nb, bm, r, dtype=dtype),
+                                                V=randn(nb, r, bn, dtype=dtype), **offs))
+                pair = build_pair_plan(bucket, L)
+                shape = f"{bkind}/{bm}x{bn}r{r}/{dtype}"
+                if pair is None:
+                    per_term.append(shape)
+                    continue
+                terms = [routes_of(bucket, side, L)[0] for side in ("t", "s")]
+                terms = [next(iter(t.values())) for t in terms]
+                conjs = ((False, False), (True, False), (False, True)) if dtype.is_complex \
+                    else ((False, False),)
+                for cj_t, cj_s in conjs:
+                    for k in EDGE_KS:
+                        xp = randn(L, k, dtype=dtype)
+                        yk = pair_bucket_matvec(pair, xp, conj_t=cj_t, conj_s=cj_s)
+                        yr = pair_bucket_matvec_reference(pair, xp, None, cj_t, cj_s)
+                        yt = tiled_bucket_matvec(terms[0], xp, conj=cj_t)
+                        tiled_bucket_matvec(terms[1], xp, out=yt, conj=cj_s)
+                        sync()
+                        require(bool(torch.isfinite(yk).all()), f"pair {shape}: non-finite")
+                        key = f"{shape}/conj{int(cj_t)}{int(cj_s)}"
+                        for what, ref in (("plain", yr), ("per_term", yt)):
+                            e = float(torch.linalg.norm(yk - ref) / torch.linalg.norm(ref))
+                            require(e <= tol_rel[dtype], f"pair {key} k={k} vs {what}: {e:.3e}")
+                            worst_of[f"{key}/{what}"] = max(worst_of.get(f"{key}/{what}", 0.0), e)
+                del bucket, pair, terms
+        return worst_of, per_term
+
+    pair_worst, pair_per_term = pair_edges()
+    emit(dict(phase="pair_kernel_vs_plain", shapes=edge_shapes, ks=EDGE_KS,
+              worst_rel=pair_worst, per_term_shapes=pair_per_term))
+    require(any("lr/6272x2080r96" in sh for sh in pair_per_term),
+            "the rank-96 bucket should keep its per-term plans")
+
+    # ---------------- 5c. the pair pass at the cells' shapes ----------------
+    # the stream cells' operators (the benchmark's 100k sphere, leaf 100,
+    # eta 100, eps 1e-3, 'S', 'L'), float32 and complex64: a planned product
+    # at k = 1 and k = 8 with every count set to 0 before it (the pair row's
+    # main-path launches), then each mirror bucket's pair plan against its
+    # plain version and against the bucket's two per-term plans, timed into
+    # the pair row: bytes are each live coefficient once (what the launch
+    # fetches) and x and y once, operations 4 k (real) or 16 k (complex) a
+    # live coefficient (each serves a row sum and a column sum)
+    def account_pair(pair, bucket, x, ms, plain_ms):
+        st = stat("pair_bucket_matvec", x.dtype)
+        k, item = x.shape[1], x.element_size()
+        if k == 1:
+            st = st["k1"]
+        st["terms"] += 1
+        st["ms"] += ms
+        st["plain_ms"] += plain_ms
+        st["bytes"] += pair.streamed_bytes(k) + item * (x.numel() + pair.out_len * k)
+        st["flops"] += (16 if x.dtype.is_complex else 4) * k * (pair.live // item)
+        # the library yardstick: bmm on the blocks' windows of x gathered
+        # beforehand, both terms
+        dense = isinstance(bucket, ht.DenseBucket)
+        A, Vb = (bucket.data, None) if dense else (bucket.U, bucket.V)
+        R, C = bucket.block_shape
+        xt = x[bucket.t_off.long()[:, None] + torch.arange(R, device=x.device)]
+        xs = x[bucket.s_off.long()[:, None] + torch.arange(C, device=x.device)]
+
+        def bmm():
+            if Vb is None:
+                torch.bmm(A, xs), torch.bmm(A.transpose(1, 2), xt)
+            else:
+                torch.bmm(A, torch.bmm(Vb, xs))
+                torch.bmm(Vb.transpose(1, 2), torch.bmm(A.transpose(1, 2), xt))
+
+        st["library_ms"] += event_ms(bmm)
+
+    t_phase = time.perf_counter()
+    pts_p = create_sphere(n, seed=args.seed)
+    pts_pd = torch.as_tensor(pts_p.astype(np.float32), device=dev)
+    tree_p = ht.build_cluster_tree(pts_p, max_leaf_size=100, n_partitions=64)
+    pair_rows = []
+    for kernel_p, cdt in ((laplace_kernel_symmetric, torch.float32),
+                          (laplace_kernel_complex_symmetric, torch.complex64)):
+        Hp = ht.build_hmatrix(ht.KernelGenerator(kernel_p, pts_pd, pts_pd), tree_p, epsilon=1e-3,
+                              eta=100.0, symmetry="S", UPLO="L")
+        require(Hp.dtype == cdt, f"the {cdt} cell's operator is {Hp.dtype}")
+        prepare_tiled_matvec(Hp)
+        mirror = [b for b in Hp.dense_buckets + Hp.lr_buckets if b.mirror]
+        require(mirror and all(b.pair is not None and b.plan_t is None for b in mirror),
+                f"{cdt}: a mirror bucket of the cell's operator has no pair plan")
+        n_other = sum(1 for b in Hp.dense_buckets + Hp.lr_buckets if not b.mirror)
+        m_pad_p = Hp.shape[0] + linalg._pad_in_of(Hp)
+        for k in (1, 8):
+            xk_p = torch.randn((n, k), dtype=cdt, device=dev)
+            matvec(Hp, xk_p)  # warm
+            sync()
+            reset_counts()
+            fused0 = counters().get("product_pairs_fused", 0)
+            matvec(Hp, xk_p)
+            sync()
+            require(pair_bucket_matvec.launches == pair_bucket_matvec.cuda_launches == len(mirror)
+                    and tiled_bucket_matvec.launches == n_other
+                    and dense_bucket_matvec.launches == lr_bucket_matvec.launches == 0
+                    and counters().get("product_pairs_fused", 0) - fused0 == len(mirror),
+                    f"{cdt} k={k}: pair launches {pair_bucket_matvec.launches}, tiled "
+                    f"{tiled_bucket_matvec.launches}, {len(mirror)} mirror buckets")
+            collect_launches()
+        for bi, bk_p in enumerate(mirror):
+            pair = bk_p.pair
+            build = (build_tile_plan if isinstance(bk_p, ht.DenseBucket)
+                     else build_tile_plan_lr_split)
+            per_t, per_s = build(bk_p, "t", m_pad_p), build(bk_p, "s", m_pad_p)
+            for k in (1, 8):
+                xp = torch.randn((m_pad_p, k), dtype=cdt, device=dev)
+                yk = pair_bucket_matvec(pair, xp)
+                yr = pair_bucket_matvec_reference(pair, xp)
+                yt = tiled_bucket_matvec(per_t, xp)
+                tiled_bucket_matvec(per_s, xp, out=yt)
+                sync()
+                require(bool(torch.isfinite(torch.view_as_real(yk) if cdt.is_complex else yk)
+                             .all()), f"pair {cdt} bucket {bi} k={k}: non-finite")
+                errs = {}
+                for what, ref in (("plain", yr), ("per_term", yt)):
+                    errs[what] = float(torch.linalg.norm(yk - ref) / torch.linalg.norm(ref))
+                    require(errs[what] <= tol_rel[cdt],
+                            f"pair {cdt} bucket {bi} k={k} vs {what}: {errs[what]:.3e}")
+                st = stat("pair_bucket_matvec", cdt)
+                st["max_abs_err"] = max(st["max_abs_err"], float((yk - yr).abs().max()))
+                ms = event_ms(lambda: pair_bucket_matvec(pair, xp))
+                plain_ms = event_ms(lambda: pair_bucket_matvec_reference(pair, xp))
+                terms_ms = event_ms(lambda: tiled_bucket_matvec(
+                    per_s, xp, out=tiled_bucket_matvec(per_t, xp)))
+                account_pair(pair, bk_p, xp, ms, plain_ms)
+                ints, _ = pair_ops._geometry(pair, pair_ops._kc(k))
+                geom = dict(zip(pair_ops._GEOM, ints))
+                pair_rows.append(dict(
+                    dtype=str(cdt), k=k, kind=pair.kind, n_blocks=bk_p.n_blocks,
+                    block_shape=bk_p.block_shape, rank=None if pair.kind == "dense" else pair.rank,
+                    n_items=pair.n_items, cs=geom["cs"], G=geom["G"],
+                    live_mb=pair.streamed_bytes(k) / 1e6, kernel_ms=ms, per_term_ms=terms_ms,
+                    plain_ms=plain_ms, rel_vs_plain=errs["plain"],
+                    rel_vs_per_term=errs["per_term"]))
+            del per_t, per_s, xp, yk, yr, yt
+        del Hp, mirror, bk_p, pair
+        torch.cuda.empty_cache()
+    emit(dict(phase="pair_main_path", n=n, rows=pair_rows,
+              phase_s=time.perf_counter() - t_phase))
+    del pts_pd, tree_p
+
     # ---------------- 6. profile ----------------
     x1 = xk[:, :1].contiguous()
 
@@ -1233,7 +1413,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     plain_versions = ((tiled_ops, "tiled_bucket_matvec_reference"),
                       (bucket_ops, "dense_bucket_matvec_reference"),
-                      (bucket_ops, "lr_bucket_matvec_reference"))
+                      (bucket_ops, "lr_bucket_matvec_reference"),
+                      (pair_ops, "pair_bucket_matvec_reference"))
     plain_originals = [getattr(mod, name) for mod, name in plain_versions]
     plain_calls = [0]
 
@@ -1530,11 +1711,14 @@ def main(argv=None) -> int:
         y_rc = matvec_user(HS, xrc)
         watch_plain(False)
         counts = {w.__name__: dict(w.launches_by_dtype) for w in wrappers}
-        used = ("tiled_bucket_matvec",) if planned else ("dense_bucket_matvec",
-                                                        "lr_bucket_matvec")
+        used = ("tiled_bucket_matvec", "pair_bucket_matvec") if planned else (
+            "dense_bucket_matvec", "lr_bucket_matvec")
+        # a pair plan applies a mirror bucket's two terms in one call
+        calls = n_terms(HS) - (sum(b.pair is not None
+                                   for b in HS.dense_buckets + HS.lr_buckets) if planned else 0)
         require(all(set(counts[w]) <= {torch.float32} for w in counts)
-                and sum(sum(counts[w].values()) for w in used) == n_terms(HS)
-                and sum(sum(c.values()) for c in counts.values()) == n_terms(HS)
+                and sum(sum(counts[w].values()) for w in used) == calls
+                and sum(sum(c.values()) for c in counts.values()) == calls
                 and plain_calls[0] == 0,
                 f"real H on complex x (planned={planned}): launches {counts}, "
                 f"plain calls {plain_calls[0]}")
@@ -1542,6 +1726,7 @@ def main(argv=None) -> int:
         linalg.tiled_bucket_matvec = tiled_bucket_matvec_reference
         linalg.dense_bucket_matvec = dense_bucket_matvec_reference
         linalg.lr_bucket_matvec = lr_bucket_matvec_reference
+        linalg.pair_bucket_matvec = pair_bucket_matvec_reference
         try:
             y_rc_plain = matvec_user(HS, xrc)
         finally:
@@ -1551,7 +1736,7 @@ def main(argv=None) -> int:
             rel_error=rel(y_rc[sub_t], ref_rc), kernel_vs_plain_rel=rel(y_rc, y_rc_plain))
         require(y_rc.dtype == torch.complex64, "real H on complex64 x: dtype")
     for b in HS.dense_buckets + HS.lr_buckets:
-        b.plan_t = b.plan_s = None
+        b.plan_t = b.plan_s = b.pair = None
     emit(dict(phase="complex_kernel_vs_plain",
               tolerance_rel=dict(complex64=1e-5, complex128=1e-12), worst_rel=c_worst,
               edge_shapes=edge_shapes, edge_ks=EDGE_KS, edge_worst_rel=c_edges,
@@ -2586,7 +2771,17 @@ def main(argv=None) -> int:
                              [csrc + "bucket_stream.cu", csrc + "matvec_stream.cuh",
                               csrc + "matvec_scalar.cuh"],
                              "htool_tpu/ops/bucket_matvec.py:258"),
+        # a mirror bucket's stored and mirror terms in one launch: the two
+        # calls of the same TPU kernel it replaces
+        "pair_bucket_matvec": ("htool_pair_matvec", csrc + "pair_matvec.cu",
+                               [csrc + "pair_matvec.cu", csrc + "matvec_stream.cuh",
+                                csrc + "matvec_scalar.cuh"],
+                               "htool_tpu/ops/tiled_matvec.py:585"),
     }
+    # the pair pass runs on the main paths of the symmetric stream cells,
+    # float32 and complex64 (phase 5c); float64 and complex128 are held to
+    # its plain version in phase 5b
+    row_dtypes = {"pair_bucket_matvec": (torch.float32, torch.complex64)}
 
     def bound_of(st, dt):
         by_bytes = 1e3 * st["bytes"] / PEAK_BYTES_S
@@ -2595,7 +2790,7 @@ def main(argv=None) -> int:
 
     kernel_rows = []
     for wname, (base, source, all_sources, replaces) in sources.items():
-        for dt in DTYPES:
+        for dt in row_dtypes.get(wname, DTYPES):
             name = str(dt).removeprefix("torch.")
             st = stats.get((wname, dt))
             n_launch = path_launches.get((wname, dt), 0)
@@ -2604,7 +2799,7 @@ def main(argv=None) -> int:
             require(n_launch > 0, f"{wname} {name}: not launched on a main path")
             bound_ms, bound_by = bound_of(st, dt)
             k1_bound_ms, k1_bound_by = bound_of(st["k1"], dt)
-            if dt.is_complex and wname == "tiled_bucket_matvec":
+            if dt.is_complex and wname in ("tiled_bucket_matvec", "pair_bucket_matvec"):
                 # the complex route of the same TPU kernel (apply_complex_plans)
                 replaces = "htool_tpu/ops/tiled_matvec.py:384"
             by_k = path_launches_k.get((wname, dt), {})

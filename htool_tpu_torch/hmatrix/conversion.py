@@ -99,7 +99,8 @@ def recompress_hmatrix(h: HMatrix, epsilon: float) -> HMatrix:
         nr_host = _host(nr)
         pad = min(_pow2_from8(int(nr_host.max()) if nr_host.size else 0), int(U2.shape[2]))
         new_lr.append(replace(b, U=U2[:, :, :pad].contiguous(), V=V2[:, :pad, :].contiguous(),
-                              ranks=nr_host.astype(np.int64), plan_t=None, plan_s=None))
+                              ranks=nr_host.astype(np.int64), plan_t=None, plan_s=None,
+                              pair=None))
     return replace(h, lr_buckets=new_lr)
 
 

@@ -30,9 +30,11 @@ class DenseBucket:
     t_sizes: np.ndarray = None
     s_sizes: np.ndarray = None
     mirror: bool = False  # symmetric mirrored contribution in products
-    # optional tiled-matvec plans (ops/tiled_matvec.py), by output side
+    # optional tiled-matvec plans (ops/tiled_matvec.py), by output side, or
+    # a mirror bucket's pair plan (ops/pair_matvec.py: both terms at once)
     plan_t: Any = None
     plan_s: Any = None
+    pair: Any = None
 
     @property
     def n_blocks(self) -> int:
@@ -57,6 +59,7 @@ class LowRankBucket:
     mirror: bool = False
     plan_t: Any = None
     plan_s: Any = None
+    pair: Any = None
 
     @property
     def n_blocks(self) -> int:

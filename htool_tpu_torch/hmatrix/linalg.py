@@ -9,7 +9,8 @@ kernels (:mod:`..ops.bucket_matvec`), for real and complex operators alike
 Padded rows/cols are exact zeros, so no masking is needed.
 Symmetric/hermitian mirrored contributions
 (``add_hmatrix_vector_product.hpp:56-104``) are separate bucket terms with
-the transposed/conjugated operand.
+the transposed/conjugated operand, or, where a mirror bucket has a pair
+plan, one launch that applies both (:mod:`..ops.pair_matvec`).
 
 All core routines work in **cluster numbering** on 2-D ``[n, nrhs]``
 tensors; user-numbering wrappers apply the permutations as gathers
@@ -24,8 +25,9 @@ import numpy as np
 import torch
 
 from ..ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
+from ..ops.pair_matvec import build_pair_plan, pair_bucket_matvec
 from ..ops.tiled_matvec import build_tile_plan, build_tile_plan_lr_split, tiled_bucket_matvec
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .hmatrix import DenseBucket, HMatrix
 
 __all__ = [
@@ -52,24 +54,32 @@ def _pad_in_of(h: HMatrix) -> int:
 
 def prepare_tiled_matvec(h: HMatrix, tile_rows: Optional[int] = None) -> HMatrix:
     """Attach tiled-product plans (:mod:`..ops.tiled_matvec`) to every
-    bucket of a GLOBAL H-matrix, real or complex, both output sides, in
-    place.  Products then run the tiled Hopper kernels on every bucket term:
-    a dense bucket gets a dense plan (``build_tile_plan``), a low-rank one
-    the split two-stage plan (``build_tile_plan_lr_split``).  A low-rank
-    bucket of rank 0 adds nothing and keeps no plan.  Call once, after
-    assembly."""
+    bucket of a GLOBAL H-matrix, real or complex, in place.  Products then
+    run the tiled Hopper kernels on every bucket term.  A mirror bucket of a
+    square symmetric or hermitian operator gets one pair plan,
+    ``bucket.pair`` (``build_pair_plan``: the block and its mirror in one
+    launch), and no per-term plans, where the pass takes it; every other
+    bucket gets a plan per output side, ``plan_t`` and ``plan_s``: a dense
+    bucket a dense plan (``build_tile_plan``), a low-rank one the split
+    two-stage plan (``build_tile_plan_lr_split``).  A low-rank bucket of
+    rank 0 adds nothing and keeps no plan.  Call once, after assembly."""
     if h.t_root_off != 0:
         raise ValueError("tiled plans require a global (non-restricted) H-matrix")
     pad_in = _pad_in_of(h)
     m, n = h.shape
+    pairs = h.symmetry in ("S", "H") and m == n
     for bucket in h.dense_buckets + h.lr_buckets:
+        bucket.plan_t = bucket.plan_s = bucket.pair = None
         if isinstance(bucket, DenseBucket):
             build = build_tile_plan
         elif bucket.rank_padded > 0:
             build = build_tile_plan_lr_split
         else:
-            bucket.plan_t = bucket.plan_s = None
             continue
+        if bucket.mirror and pairs:
+            bucket.pair = build_pair_plan(bucket, m + pad_in)
+            if bucket.pair is not None:
+                continue
         bucket.plan_t = build(bucket, "t", m + pad_in, tile_rows)
         bucket.plan_s = build(bucket, "s", n + pad_in, tile_rows)
     return h
@@ -151,6 +161,15 @@ def _unplanned_term(blocks, in_off, out_off, in_root, out_root, x_k, y_k, kdtype
        conj=kdtype.is_complex and mode in ("C", "conj"))
 
 
+def _check_plan(plan, y_pad) -> None:
+    if plan.out_len != y_pad.shape[0]:
+        raise ValueError(
+            f"tiled plan writes {plan.out_len} rows, the product has "
+            f"{y_pad.shape[0]}: prepare_tiled_matvec again after "
+            "changing the H-matrix"
+        )
+
+
 def matvec(h: HMatrix, x, op: str = "N"):
     """Product in cluster numbering: ``op(H) @ x``.
 
@@ -159,7 +178,12 @@ def matvec(h: HMatrix, x, op: str = "N"):
     the local rows; 'T'/'C' takes the local rows slice as input and returns a
     GLOBAL-size output (the caller reduces across partitions).
 
-    A bucket term with a plan runs the tiled kernel
+    A mirror bucket with a pair plan (``bucket.pair``) runs its two terms in
+    one launch (:func:`..ops.pair_matvec.pair_bucket_matvec`) and adds one
+    to the process counter ``product_pairs_fused``; any other mirror bucket
+    with work adds one to ``product_pairs_split``, and so does one whose
+    pair plan no layout fits at a wider dtype of x (its two terms then run
+    the unplanned kernels).  A bucket term with a plan runs the tiled kernel
     (:func:`..ops.tiled_matvec.tiled_bucket_matvec`); a term without one
     runs the unplanned kernels (:func:`..ops.bucket_matvec.dense_bucket_matvec`,
     :func:`..ops.bucket_matvec.lr_bucket_matvec`).  Mode 'T' applies the
@@ -193,18 +217,26 @@ def matvec(h: HMatrix, x, op: str = "N"):
 
         for bucket in h.dense_buckets + h.lr_buckets:
             blocks = (bucket.data,) if isinstance(bucket, DenseBucket) else (bucket.U, bucket.V)
-            for in_side, out_side, mode, is_mirror in _bucket_terms(bucket, op, h.symmetry):
+            terms = _bucket_terms(bucket, op, h.symmetry)
+            pair = bucket.pair
+            if pair is not None:
+                _check_plan(pair, y_pad)
+                if pair.dtype != kdtype:
+                    pair = pair.astype(kdtype)  # None: no layout fits the wider dtype
+            if pair is not None:
+                cj = {out: kdtype.is_complex and mode in ("C", "conj") for _, out, mode, _ in terms}
+                pair_bucket_matvec(pair, x_k, out=y_k, conj_t=cj["t"], conj_s=cj["s"])
+                count("product_pairs_fused")
+                continue
+            if bucket.mirror and (isinstance(bucket, DenseBucket) or bucket.rank_padded > 0):
+                count("product_pairs_split")
+            for in_side, out_side, mode, is_mirror in terms:
                 plan = bucket.plan_t if out_side == "t" else bucket.plan_s
                 if plan is None:
                     _unplanned_term(blocks, *_term_offsets(h.t_root_off, bucket, in_side, out_side,
                                                            is_mirror), x_k, y_k, kdtype, mode)
                     continue
-                if plan.out_len != y_pad.shape[0]:
-                    raise ValueError(
-                        f"tiled plan writes {plan.out_len} rows, the product has "
-                        f"{y_pad.shape[0]}: prepare_tiled_matvec again after "
-                        "changing the H-matrix"
-                    )
+                _check_plan(plan, y_pad)
                 if plan.dtype != kdtype:
                     plan = plan.astype(kdtype)
                 tiled_bucket_matvec(plan, x_k, out=y_k,

@@ -14,7 +14,11 @@ under keys of their own (``*_tplan_*``), so a file it wrote is one the JAX
 package's loader reads too, without plans.  A file from before every
 low-rank plan was split can hold a one-launch plan of a low-rank bucket
 (``*_tplan_<side>_aux`` on an ``l`` bucket): the loader builds that
-bucket's split plan from the bucket itself.
+bucket's split plan from the bucket itself.  A mirror bucket's pair plan
+(``bucket.pair``, :class:`..ops.pair_matvec.PairPlan`) is stored under
+``*_tplan_pair_*``; a file from before the pair pass holds per-term
+plans for such a bucket, and the loader builds its pair plan instead, where
+the pass takes the bucket.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import csv
 import numpy as np
 import torch
 
+from ..ops.pair_matvec import PairPlan, build_pair_plan
 from ..ops.tiled_matvec import SplitPlan, TilePlan, build_tile_plan_lr_split
 from ..utils.device import resolve_device
 from .hmatrix import DenseBucket, HMatrix, LowRankBucket
@@ -132,9 +137,18 @@ def _pack_plan(payload: dict, key: str, plan: TilePlan) -> None:
     payload[f"{key}_read_bytes"] = np.array(plan.read_bytes, np.int64)
 
 
+_PAIR_AUX = ("n_items", "tile_rows", "rows", "cols", "rank", "live", "out_len")
+
+
 def _pack_plans(payload: dict, prefix: str, bucket) -> None:
     """Dense plans under ``*_tplan_<side>``; the two stages of a split plan
-    under ``*_tplan_<side>_a`` / ``_b`` with its ``r_pad``."""
+    under ``*_tplan_<side>_a`` / ``_b`` with its ``r_pad``; a pair plan
+    under ``*_tplan_pair``."""
+    if bucket.pair is not None:
+        plan = bucket.pair
+        payload[f"{prefix}_tplan_pair_aux"] = np.array([getattr(plan, a) for a in _PAIR_AUX],
+                                                       np.int64)
+        payload[f"{prefix}_tplan_pair_items"] = _host(plan.items)
     for side in ("t", "s"):
         plan = getattr(bucket, f"plan_{side}")
         key = f"{prefix}_tplan_{side}"
@@ -158,7 +172,18 @@ def _unpack_plan(z, key: str, blocks: dict, device) -> TilePlan:
     return TilePlan(**blocks, **aux, **ints)
 
 
-def _unpack_plans(z, prefix: str, bucket, device) -> None:
+def _unpack_plans(z, prefix: str, bucket, device, pairs: bool) -> None:
+    """The bucket's plans from the file.  ``pairs``: the operator is square
+    and symmetric or hermitian, so a mirror bucket takes a pair plan."""
+    key = f"{prefix}_tplan_pair"
+    if f"{key}_aux" in z:
+        aux = dict(zip(_PAIR_AUX, (int(a) for a in z[f"{key}_aux"])))
+        lr = isinstance(bucket, LowRankBucket)
+        bucket.pair = PairPlan(
+            kind="lr" if lr else "dense", data=bucket.U if lr else bucket.data,
+            V=bucket.V if lr else None, items=torch.as_tensor(z[f"{key}_items"], device=device),
+            **aux)
+        return
     for side in ("t", "s"):
         key = f"{prefix}_tplan_{side}"
         if f"{key}_split" in z:
@@ -176,6 +201,12 @@ def _unpack_plans(z, prefix: str, bucket, device) -> None:
         else:
             continue
         setattr(bucket, f"plan_{side}", plan)
+    if pairs and bucket.mirror and bucket.plan_t is not None:
+        # per-term plans of a file from before the pair pass: the pair plan
+        # over the same padded vectors, where the pass takes the bucket
+        bucket.pair = build_pair_plan(bucket, bucket.plan_t.out_len)
+        if bucket.pair is not None:
+            bucket.plan_t = bucket.plan_s = None
 
 
 def save_hmatrix(h: HMatrix, filename: str, include_plans: bool = True) -> None:
@@ -220,6 +251,9 @@ def load_hmatrix(filename: str, device=None) -> HMatrix:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     with np.load(filename, allow_pickle=False) as z:
+        shape = tuple(int(x) for x in z["shape"])
+        pairs = str(z["symmetry"][0]) in ("S", "H") and shape[0] == shape[1]
+
         def common(prefix):
             return dict(
                 t_off=dev(z[f"{prefix}_t_off"], torch.int64),
@@ -232,16 +266,16 @@ def load_hmatrix(filename: str, device=None) -> HMatrix:
         dense, lr = [], []
         for k in range(int(z["n_dense"][0])):
             b = DenseBucket(data=dev(z[f"d{k}_data"]), **common(f"d{k}"))
-            _unpack_plans(z, f"d{k}", b, device)
+            _unpack_plans(z, f"d{k}", b, device, pairs)
             dense.append(b)
         for k in range(int(z["n_lr"][0])):
             b = LowRankBucket(U=dev(z[f"l{k}_U"]), V=dev(z[f"l{k}_V"]),
                               ranks=np.asarray(z[f"l{k}_ranks"], np.int64),
                               **common(f"l{k}"))
-            _unpack_plans(z, f"l{k}", b, device)
+            _unpack_plans(z, f"l{k}", b, device, pairs)
             lr.append(b)
         return HMatrix(
-            shape=tuple(int(x) for x in z["shape"]),
+            shape=shape,
             dense_buckets=dense,
             lr_buckets=lr,
             perm_t=dev(z["perm_t"], torch.int64),

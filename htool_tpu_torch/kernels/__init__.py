@@ -71,12 +71,15 @@ def _declare(lib: ctypes.CDLL) -> None:
                                    vp, ll, vp, ci, ci, ci, ci, ci, ci, ci, vp],
         "htool_dense_bucket_stream": [ci, ci, vp, ci, ci, ci, vp, vp, ll, ll, vp, ll, ci, vp,
                                       ll, ci, ci, ci, vp],
+        "htool_pair_matvec": [ci, vp, vp, vp, vp, ci, ci, vp, ci, vp, vp],
     }
     for base, argtypes in signatures.items():
         for suffix in SUFFIX_OF.values():
             fn = getattr(lib, base + suffix)
             fn.argtypes = argtypes
             fn.restype = ci
+    lib.htool_pair_geom_ints.argtypes = []
+    lib.htool_pair_geom_ints.restype = ci
     lib.htool_cuda_error_string.argtypes = [ci]
     lib.htool_cuda_error_string.restype = ctypes.c_char_p
 

@@ -282,7 +282,7 @@ def _graph_inputs(H, precond) -> tuple:
     if precond is not None:
         out += [precond.idx, precond.weights, precond.inv]
     for bucket in H.dense_buckets + H.lr_buckets:
-        out += [bucket, bucket.plan_t, bucket.plan_s]
+        out += [bucket, bucket.plan_t, bucket.plan_s, bucket.pair]
         out += [bucket.data] if isinstance(bucket, DenseBucket) else [bucket.U, bucket.V]
     return tuple(out)
 

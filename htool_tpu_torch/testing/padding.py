@@ -36,7 +36,7 @@ def fill_padding(h: HMatrix, value: float) -> HMatrix:
         out = (_outside(bm, b.t_sizes, b.data.device)[:, :, None]
                | _outside(bn, b.s_sizes, b.data.device)[:, None, :])
         dense.append(dataclasses.replace(b, data=b.data.masked_fill(out, value),
-                                         plan_t=None, plan_s=None))
+                                         plan_t=None, plan_s=None, pair=None))
     for b in h.lr_buckets:
         _, bm, r = b.U.shape
         bn = b.V.shape[2]
@@ -44,5 +44,5 @@ def fill_padding(h: HMatrix, value: float) -> HMatrix:
         rank = _outside(r, b.ranks, dev)
         U = b.U.masked_fill(_outside(bm, b.t_sizes, dev)[:, :, None] | rank[:, None, :], value)
         V = b.V.masked_fill(rank[:, :, None] | _outside(bn, b.s_sizes, dev)[:, None, :], value)
-        lr.append(dataclasses.replace(b, U=U, V=V, plan_t=None, plan_s=None))
+        lr.append(dataclasses.replace(b, U=U, V=V, plan_t=None, plan_s=None, pair=None))
     return dataclasses.replace(h, dense_buckets=dense, lr_buckets=lr, info=dict(h.info))

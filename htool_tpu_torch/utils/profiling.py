@@ -92,13 +92,9 @@ def counters() -> dict:
 
 
 def _launches() -> int:
-    """CUDA launches of the three kernel wrappers so far (their own
+    """CUDA launches of the product's kernel wrappers so far (their own
     ``cuda_launches`` counts)."""
-    from ..ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
-    from ..ops.tiled_matvec import tiled_bucket_matvec
-
-    return (tiled_bucket_matvec.cuda_launches + dense_bucket_matvec.cuda_launches
-            + lr_bucket_matvec.cuda_launches)
+    return sum(fn.cuda_launches for fn in _tallied()[:-1])
 
 
 def _totals() -> dict:
@@ -108,14 +104,16 @@ def _totals() -> dict:
 
 
 def _tallied() -> tuple:
-    """The functions that keep counts on themselves: the three kernel
-    wrappers (launches by dtype and by k, CUDA launches) and the product
+    """The functions that keep counts on themselves: the product's kernel
+    wrappers (launches by dtype and by k, CUDA launches), then the product
     (``matvec.products``)."""
     from ..hmatrix.linalg import matvec
     from ..ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
+    from ..ops.pair_matvec import pair_bucket_matvec
     from ..ops.tiled_matvec import tiled_bucket_matvec
 
-    return tiled_bucket_matvec, dense_bucket_matvec, lr_bucket_matvec, matvec
+    return (tiled_bucket_matvec, dense_bucket_matvec, lr_bucket_matvec, pair_bucket_matvec,
+            matvec)
 
 
 def tallies() -> dict:

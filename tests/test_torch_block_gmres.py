@@ -163,7 +163,7 @@ def ddm_problem(request):
 def test_ddm_block_gmres_parity(ddm_problem, planned):
     p = ddm_problem
     for b in p["H_t"].dense_buckets + p["H_t"].lr_buckets:
-        b.plan_t = b.plan_s = None
+        b.plan_t = b.plan_s = b.pair = None
     if planned:
         prepare_tiled_matvec(p["H_t"])
     is_complex = p["H_t"].dtype.is_complex
@@ -189,7 +189,7 @@ def test_ddm_gmres_complex_parity(ddm_problem):
     operator: same iteration count, same solution."""
     p = ddm_problem
     for b in p["H_t"].dense_buckets + p["H_t"].lr_buckets:
-        b.plan_t = b.plan_s = None
+        b.plan_t = b.plan_s = b.pair = None
     B = _rhs(N, 2, p["H_t"].dtype.is_complex, 8)
     st = DDMSolver(p["H_t"], p["gen_t"], p["tree_t"], schwarz="ras", overlap_radius=0.15)
     sj = JaxDDMSolver(p["H_j"], p["gen_j"], p["tree_j"], schwarz="ras", overlap_radius=0.15)

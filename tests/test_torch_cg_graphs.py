@@ -185,6 +185,29 @@ def test_what_the_graphs_read_changes_captures_again(problem, seam):
     assert c["krylov_graph_captures"] == 1 and torch.equal(x, want)
 
 
+def test_a_new_pair_plan_captures_again(problem, seam):
+    """The graphs read each mirror bucket's pair plan (``bucket.pair``):
+    replacing one bucket's pair plan by a new one captures again, with the
+    same answer; the products of a replayed step count their pairs."""
+    from htool_tpu_torch.ops.pair_matvec import PairPlan, build_pair_plan
+
+    g = problem
+    s = DDMSolver(g["H"], g["gen"], g["tree"], schwarz="asm", overlap=g["overlap"])
+    want, infos, _ = _solve(s, _rhs_of(1, seed=6))
+    x, _, c = _solve(s, _rhs_of(1, seed=6))
+    n_pair = sum(isinstance(b.pair, PairPlan) for b in g["H"].lr_buckets + g["H"].dense_buckets)
+    assert n_pair >= 2 and c.get("krylov_graph_captures", 0) == 0 and torch.equal(x, want)
+    assert c["product_pairs_fused"] == n_pair * (infos["Nb_it"] + 1)
+    b = next(b for b in g["H"].lr_buckets if isinstance(b.pair, PairPlan))
+    old = b.pair
+    b.pair = build_pair_plan(b, old.out_len)
+    try:
+        x, _, c = _solve(s, _rhs_of(1, seed=6))
+        assert c["krylov_graph_captures"] == 1 and torch.equal(x, want)
+    finally:
+        b.pair = old
+
+
 def _callable_solver(g):
     H = g["H"]
     return DDMSolver(lambda v: matvec(H, v), g["gen"], g["tree"], schwarz="asm",

@@ -32,6 +32,7 @@ from htool_tpu.testing import kernels as kernels_jax
 from htool_tpu_torch.convert import hmatrix_from_numpy
 from htool_tpu_torch.hmatrix import linalg as lt
 from htool_tpu_torch.ops.bucket_matvec import dense_bucket_matvec, lr_bucket_matvec
+from htool_tpu_torch.ops.pair_matvec import PairPlan
 from htool_tpu_torch.ops.tiled_matvec import (
     SplitPlan,
     build_tile_plan,
@@ -86,7 +87,7 @@ def _buckets(H):
 
 def _clear_plans(H):
     for b in _buckets(H):
-        b.plan_t = b.plan_s = None
+        b.plan_t = b.plan_s = b.pair = None
 
 
 def _x(n, k, seed, dtype=np.complex128):
@@ -116,7 +117,9 @@ def test_complex128_matvec_parity(pairs, xla_path, name, op, planned):
     _clear_plans(Ht)
     if planned:
         lt.prepare_tiled_matvec(Ht, tile_rows=128)
-        assert all(b.plan_t is not None and b.plan_t.dtype == torch.complex128
+        # a mirror bucket of a symmetric or hermitian operator: one pair plan
+        assert all((b.plan_t if b.pair is None else b.pair) is not None
+                   and (b.plan_t if b.pair is None else b.pair).dtype == torch.complex128
                    for b in _buckets(Ht))
     try:
         n_in = A.shape[1] if op == "N" else A.shape[0]
@@ -205,12 +208,15 @@ def test_real_hmatrix_on_complex_x(xla_path, monkeypatch, width, planned):
     if planned:
         lt.prepare_tiled_matvec(Ht, tile_rows=128)
     seen = []
-    for name in ("tiled_bucket_matvec", "dense_bucket_matvec", "lr_bucket_matvec"):
+    for name in ("tiled_bucket_matvec", "pair_bucket_matvec", "dense_bucket_matvec",
+                 "lr_bucket_matvec"):
         real = getattr(lt, name)
 
         def spy(*a, _real=real, _name=name, **kw):
-            x_pad = a[1] if _name == "tiled_bucket_matvec" else a[-3]
-            seen.append((_name, x_pad.dtype, x_pad.shape[1], kw.get("conj")))
+            x_pad = a[1] if _name in ("tiled_bucket_matvec", "pair_bucket_matvec") else a[-3]
+            conj = kw.get("conj_t", False) or kw.get("conj_s", False) if "pair" in _name \
+                else kw.get("conj")
+            seen.append((_name, x_pad.dtype, x_pad.shape[1], conj))
             return _real(*a, **kw)
 
         monkeypatch.setattr(lt, name, spy)
@@ -218,14 +224,15 @@ def test_real_hmatrix_on_complex_x(xla_path, monkeypatch, width, planned):
     x = _x(N, k, 5, xdt)
     tol = 1e-12 if width == "f64-c128" else 1e-4
     real_dtype = torch.float64 if xdt == np.complex128 else torch.float32
-    terms = sum(1 + bool(b.mirror) for b in _buckets(Ht))
+    # planned: a mirror bucket's two terms are one call of the pair wrapper
+    terms = sum(1 + bool(b.mirror and not planned) for b in _buckets(Ht))
     for op in ("N", "T", "C"):
         seen.clear()
         got = lt.matvec_user(Ht, x, op=op).numpy()
         assert got.dtype == xdt
         assert len(seen) == terms
         assert {s[1:] for s in seen} == {(real_dtype, 2 * k, False)}
-        assert ({s[0] for s in seen} == {"tiled_bucket_matvec"}) == planned
+        assert ({s[0] for s in seen} == {"tiled_bucket_matvec", "pair_bucket_matvec"}) == planned
         want = np.asarray(lj.matvec_user(Hj, jnp.asarray(x), op=op))
         assert _rel(got, want) < tol
         assert _rel(got, _dense(A, op) @ x) < max(10 * EPS, tol)
@@ -342,11 +349,20 @@ def test_complex_plans_save_load_roundtrip(pairs, tmp_path, name):
         back = ot.load_hmatrix(path)
         assert back.dtype == torch.complex128 and back.symmetry == Ht.symmetry
         for ba, bb in zip(_buckets(Ht), _buckets(back)):
-            for side in ("plan_t", "plan_s"):
-                pa, pb = getattr(ba, side), getattr(bb, side)
-                assert pb is not None and pb.dtype == torch.complex128
+            # a pair plan, or a plan for each side
+            assert (bb.pair is None) == (bb.plan_t is not None) == (bb.plan_s is not None)
+            for field in ("plan_t", "plan_s", "pair"):
+                pa, pb = getattr(ba, field), getattr(bb, field)
                 assert type(pb) is type(pa)
-                if pb.kind == "lr_split":  # two stages over the reloaded U and V
+                if pb is None:
+                    continue
+                assert pb.dtype == torch.complex128
+                if isinstance(pb, PairPlan):  # one plan over the reloaded blocks
+                    assert pb.data is (bb.U if pb.kind == "lr" else bb.data)
+                    assert pb.V is (bb.V if pb.kind == "lr" else None)
+                    stages = []
+                    assert torch.equal(pa.items, pb.items) and pa.live == pb.live
+                elif pb.kind == "lr_split":  # two stages over the reloaded U and V
                     assert pb.r_pad == pa.r_pad
                     assert {id(pb.stage_a.data), id(pb.stage_b.data)} == {id(bb.U), id(bb.V)}
                     stages = list(zip(pa, pb))
@@ -374,7 +390,7 @@ def test_load_complex_file_written_by_jax(pairs, xla_path, tmp_path, name):
     oj.save_hmatrix(Hj, path)
     back = ot.load_hmatrix(path)
     assert back.dtype == torch.complex128 and (back.symmetry, back.UPLO) == (Hj.symmetry, Hj.UPLO)
-    assert all(b.plan_t is None and b.plan_s is None for b in _buckets(back))
+    assert all(b.plan_t is None and b.plan_s is None and b.pair is None for b in _buckets(back))
     x = _x(N, 2, 6)
     for op in ("N", "C"):
         want = np.asarray(lj.matvec_user(Hj, jnp.asarray(x), op=op))

@@ -26,6 +26,7 @@ SLICE = [
     "htool_tpu_torch.hmatrix.info",
     "htool_tpu_torch.ops.cut",
     "htool_tpu_torch.ops.tiled_matvec",
+    "htool_tpu_torch.ops.pair_matvec",
     "htool_tpu_torch.kernels",
     "htool_tpu_torch.hmatrix.linalg",
     "htool_tpu_torch.solvers.krylov",

@@ -2,14 +2,21 @@
 
 A symmetric H-matrix of a sphere ('S', 'L': dense diagonal blocks, mirrored
 dense and low-rank blocks), in float32, float64, complex64 and complex128,
-with the split two-stage plan on every low-rank bucket.  For the stored term
-(plan_t) and the mirror term (plan_s) of each bucket:
+planned: the diagonal bucket's per-term plans, and each mirror bucket's pair
+plan (the block and its mirror in one launch).  For the stored term (side
+"t") and the mirror term (side "s") of each bucket, through its per-term
+plan (built for a mirror bucket as before the pair pass: the plans it takes
+where the pass does not take it), and for each pair plan at k = 1 (side
+"t") and k = 8 (side "s"):
 
 - each slot's extent is its block's true rows and columns as stored, in the
   plan's sort order (a dense block's ``t_sizes`` x ``s_sizes``; stage by
-  stage, V's ``ranks`` x ``s_sizes`` and U's ``t_sizes`` x ``ranks``);
+  stage, V's ``ranks`` x ``s_sizes`` and U's ``t_sizes`` x ``ranks``); a
+  pair plan's items hold each block's true columns and rank, and its rows
+  once (a dense block's in panels that tile them);
 - the plan's count of streamed bytes is each live row's run in whole
-  32-byte sectors, panel by panel;
+  32-byte sectors, panel by panel (a pair plan's: each live coefficient
+  once, a cluster's piece of a V row a run of its own);
 - the product matches the H-matrix's dense export, and does so unchanged when every
   stored entry outside the live extents is NaN (the plain version reads
   what the kernel reads).
@@ -22,8 +29,14 @@ import torch
 import torch_parity  # noqa: F401  (CPU device, one BLAS thread)
 
 import htool_tpu_torch as ht
-from htool_tpu_torch.hmatrix.linalg import matvec_user, prepare_tiled_matvec
-from htool_tpu_torch.ops.tiled_matvec import SplitPlan, TilePlan
+from htool_tpu_torch.hmatrix.linalg import _pad_in_of, matvec_user, prepare_tiled_matvec
+from htool_tpu_torch.ops import pair_matvec as pm
+from htool_tpu_torch.ops.tiled_matvec import (
+    SplitPlan,
+    TilePlan,
+    build_tile_plan,
+    build_tile_plan_lr_split,
+)
 from htool_tpu_torch.testing import (
     create_sphere,
     fill_padding,
@@ -38,8 +51,8 @@ _CACHE = {}
 
 
 def operator(dtype: str):
-    """The symmetric H-matrix in ``dtype``, planned (split plans on every
-    low-rank bucket)."""
+    """The symmetric H-matrix in ``dtype``, planned (a pair plan on every
+    mirror bucket, split plans on the other low-rank buckets)."""
     if dtype not in _CACHE:
         real = np.float32 if dtype in ("float32", "complex64") else np.float64
         kernel = (laplace_kernel_complex_symmetric if "complex" in dtype
@@ -54,10 +67,27 @@ def operator(dtype: str):
     return _CACHE[dtype]
 
 
-def stages(bucket, side: str):
+_PER_TERM = {}
+
+
+def per_term(H, bucket, side: str):
+    """The bucket term's per-term plan: its own, or, for a bucket with a
+    pair plan, the one ``prepare_tiled_matvec`` builds without the pass."""
+    plan = bucket.plan_t if side == "t" else bucket.plan_s
+    if plan is None:
+        key = (id(bucket), side)
+        if key not in _PER_TERM:
+            build = (build_tile_plan if isinstance(bucket, ht.DenseBucket)
+                     else build_tile_plan_lr_split)
+            _PER_TERM[key] = (bucket, build(bucket, side, H.shape[0] + _pad_in_of(H)))
+        plan = _PER_TERM[key][1]
+    return plan
+
+
+def stages(H, bucket, side: str):
     """[(plan, rows, cols)] of a bucket term: each launch's plan and the
     true rows and columns of the matrix it streams, per block."""
-    plan = bucket.plan_t if side == "t" else bucket.plan_s
+    plan = per_term(H, bucket, side)
     t, s = np.asarray(bucket.t_sizes), np.asarray(bucket.s_sizes)
     if isinstance(bucket, ht.DenseBucket):
         return [(plan, t, s)]
@@ -77,11 +107,16 @@ def terms(dtype: str):
 @pytest.mark.parametrize("side", ["t", "s"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_slot_extents_are_the_blocks_true_sizes(dtype, side):
-    seen = 0
+    H, _ = operator(dtype)
+    seen = pairs = 0
     for bucket, s in terms(dtype):
         if s != side:
             continue
-        for plan, rows, cols in stages(bucket, side):
+        if bucket.pair is not None:
+            _check_pair_items(bucket, bucket.pair, np.asarray(bucket.t_sizes),
+                              np.asarray(bucket.s_sizes))
+            pairs += 1
+        for plan, rows, cols in stages(H, bucket, side):
             assert isinstance(plan, TilePlan) and plan.ext is not None
             blk = plan.blk.numpy()
             ext = plan.ext.numpy()
@@ -92,7 +127,48 @@ def test_slot_extents_are_the_blocks_true_sizes(dtype, side):
             assert not ext[~real].any()
             assert plan.ext_max == (int(rows.max()), int(cols.max()))
             seen += 1
-    assert seen >= 2
+    assert seen >= 2 and pairs >= (2 if side == "s" else 1)
+
+
+def _check_pair_items(bucket, plan, rows, cols):
+    """A pair plan's items: every live block once (a dense block's rows in
+    panels of at most ``tile_rows`` that tile them), with its true columns,
+    rank and offsets, sorted by t."""
+    it = plan.items.numpy().astype(np.int64)
+    b = it[:, 0]
+    t_off, s_off = bucket.t_off.numpy(), bucket.s_off.numpy()
+    np.testing.assert_array_equal(it[:, 3], t_off[b])
+    np.testing.assert_array_equal(it[:, 4], s_off[b])
+    np.testing.assert_array_equal(it[:, 5], cols[b])
+    assert (np.diff(it[:, 3]) >= 0).all()
+    covered = np.zeros(len(rows), np.int64)
+    np.add.at(covered, b, it[:, 2] - it[:, 1])
+    if plan.kind == "dense":
+        assert (it[:, 2] - it[:, 1] <= plan.tile_rows).all() and not it[:, 6].any()
+        np.testing.assert_array_equal(covered, rows)
+    else:
+        ranks = np.asarray(bucket.ranks)
+        assert not it[:, 1].any() and len(np.unique(b)) == len(b)
+        np.testing.assert_array_equal(it[:, 6], ranks[b])
+        np.testing.assert_array_equal(covered, np.where(ranks > 0, rows, 0))
+
+
+def _pair_formula(bucket, plan, k, item):
+    """A pair launch's bytes at k columns: a dense block's rows once, a
+    low-rank block's U rows once and V's rows in the launch's cluster
+    pieces, each run in whole 32-byte sectors."""
+    run = lambda n: -(-int(n) * item // 32) * 32
+    t, s = np.asarray(bucket.t_sizes), np.asarray(bucket.s_sizes)
+    if plan.kind == "dense":
+        return sum(int(r) * run(c) for r, c in zip(t, s))
+    geom = dict(zip(pm._GEOM, pm._geometry(plan, pm._kc(k))[0]))
+    cs, mc = geom["cs"], geom["mc"]
+    total = 0
+    for r, c, rk in zip(t.tolist(), s.tolist(), np.asarray(bucket.ranks).tolist()):
+        if rk and r and c:
+            total += r * run(rk) + rk * sum(run(min(mc, c - q * mc)) for q in range(cs)
+                                            if c > q * mc)
+    return total
 
 
 def _formula(rows, cols, P, cut, trans, item):
@@ -117,16 +193,23 @@ def _formula(rows, cols, P, cut, trans, item):
 def test_streamed_bytes_are_the_live_sectors(dtype, side):
     H, _ = operator(dtype)
     item = torch.empty((), dtype=H.dtype).element_size()
-    live = padded = 0
+    live = padded = pair_live = pair_padded = 0
     for bucket, s in terms(dtype):
         if s != side:
             continue
-        for plan, rows, cols in stages(bucket, side):
+        if bucket.pair is not None:
+            plan, k = bucket.pair, 1 if side == "t" else 8
+            want = _pair_formula(bucket, plan, k, item)
+            assert plan.streamed_bytes(k) == want
+            pair_live += want
+            pair_padded += sum(a.numel() for a in (plan.data, plan.V) if a is not None) * item
+        for plan, rows, cols in stages(H, bucket, side):
             want = _formula(rows, cols, plan.P, plan.out_w, plan.trans, item)
             assert plan.streamed_bytes() == want
             live += want
             padded += plan.data.numel() * item
     assert 0 < live < padded  # the padding is not streamed
+    assert 0 < pair_live < pair_padded
 
 
 @pytest.mark.parametrize("op", ["N", "T"])

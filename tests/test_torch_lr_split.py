@@ -8,7 +8,12 @@ float64; (b) the cut rule covers every entry of every block exactly once;
 (c) ``matvec`` with split plans against the unplanned product and the JAX
 ``matvec``, ``prepare_tiled_matvec``'s plan for every bucket, and the npz
 round trip of a split plan, also from a file that holds a one-launch
-low-rank plan."""
+low-rank plan; (d) the pair pass of symmetric and hermitian operators (a
+mirror bucket and its mirror in one launch): its plain version against the
+two per-term plain terms, ``matvec`` against the per-term plans and the JAX
+package's ``matvec``, its edges (panelled blocks, padding, rank 0, a rank
+too wide for it), its counters, and the npz round trip of a pair plan, also
+from a file that holds per-term plans."""
 
 import dataclasses
 
@@ -215,7 +220,7 @@ def pairs():
 
 def _clear(H):
     for b in H.dense_buckets + H.lr_buckets:
-        b.plan_t = b.plan_s = None
+        b.plan_t = b.plan_s = b.pair = None
 
 
 @pytest.mark.parametrize("k", [1, 8])
@@ -326,3 +331,256 @@ def test_split_plan_save_load_roundtrip(pairs, tmp_path, name, layout):
             assert torch.equal(matvec(back, x, op=op), matvec(Ht, x, op=op))
     finally:
         _clear(Ht)
+
+
+# --------------------------------------------------------------------------
+# (d) the pair pass
+
+from htool_tpu_torch.hmatrix.linalg import _bucket_terms, _pad_in_of
+from htool_tpu_torch.ops import pair_matvec as pair_mod
+from htool_tpu_torch.ops.pair_matvec import (
+    PairPlan,
+    build_pair_plan,
+    pair_bucket_matvec_reference,
+)
+from htool_tpu_torch.utils import profiling
+
+SYM_CASES = ["S-float32", "S-float64", "S-complex64", "S-complex128", "H-complex64",
+             "H-complex128"]
+PAIR_TOL = {"float32": 2e-6, "complex64": 2e-6, "float64": 1e-12, "complex128": 1e-12}
+
+
+@pytest.fixture(scope="module")
+def sym_ops():
+    """(JAX H-matrix, the same carried across) of a symmetric real, a
+    symmetric complex and a hermitian operator ('L'), n = 500."""
+    out = {}
+    pts = create_sphere(500)
+    tree = hj.ClusterTreeBuilder(max_leaf_size=32, backend="python").build(pts)
+    for name, kernel, sym in (("S-real", laplace_kernel_symmetric, "S"),
+                              ("S-complex", hj.testing.laplace_kernel_complex_symmetric, "S"),
+                              ("H-complex", hj.testing.laplace_kernel_hermitian, "H")):
+        gen = hj.KernelGenerator(kernel, pts, pts)
+        Hj = hj.build_hmatrix(gen, tree, epsilon=1e-6, eta=10.0, symmetry=sym, UPLO="L")
+        out[name] = (Hj, hmatrix_from_numpy(hmatrix_to_numpy(Hj)))
+    return out
+
+
+def _sym_case(sym_ops, case):
+    """(JAX H-matrix, the port's in the case's dtype, unplanned, dtype name)."""
+    sym, dtype = case.split("-")
+    Hj, Ht = sym_ops[f"{sym}-{'complex' if 'complex' in dtype else 'real'}"]
+    dt = getattr(torch, dtype)
+    H = dataclasses.replace(
+        Ht,
+        dense_buckets=[dataclasses.replace(b, data=b.data.to(dt), plan_t=None, plan_s=None,
+                                           pair=None)
+                       for b in Ht.dense_buckets],
+        lr_buckets=[dataclasses.replace(b, U=b.U.to(dt), V=b.V.to(dt), plan_t=None, plan_s=None,
+                                        pair=None)
+                    for b in Ht.lr_buckets])
+    return Hj, H, dtype
+
+
+def _x_of(n, k, complex_, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, k)
+    return x + 1j * rng.randn(n, k) if complex_ else x
+
+
+def _per_term(H):
+    """Per-term plans on every bucket (the layout before the pair pass)."""
+    pad = _pad_in_of(H)
+    for b in H.dense_buckets + H.lr_buckets:
+        b.pair = None
+        dense = isinstance(b, DenseBucket)
+        if dense or b.rank_padded > 0:
+            build = build_tile_plan if dense else build_tile_plan_lr_split
+            b.plan_t = build(b, "t", H.shape[0] + pad)
+            b.plan_s = build(b, "s", H.shape[1] + pad)
+    return H
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("case", SYM_CASES)
+def test_pair_plan_matches_its_two_terms(sym_ops, case, k):
+    """Bucket by bucket, the pair plan's plain version equals the stored and
+    the mirror term's plain versions (per-term plans), for the conjugations
+    of every op."""
+    _, H, dtype = _sym_case(sym_ops, case)
+    out_len = H.shape[0] + _pad_in_of(H)
+    x = torch.as_tensor(_x_of(out_len, k, "complex" in dtype, 5)).to(getattr(torch, dtype))
+    seen = 0
+    for b in H.dense_buckets + H.lr_buckets:
+        if not b.mirror:
+            continue
+        pair = build_pair_plan(b, out_len)
+        assert isinstance(pair, PairPlan)
+        dense = isinstance(b, DenseBucket)
+        build = build_tile_plan if dense else build_tile_plan_lr_split
+        per_t, per_s = build(b, "t", out_len), build(b, "s", out_len)
+        for op in ("N", "T", "C"):
+            cj = {out: x.is_complex() and mode in ("C", "conj")
+                  for _, out, mode, _ in _bucket_terms(b, op, H.symmetry)}
+            got = pair_bucket_matvec_reference(pair, x, None, cj["t"], cj["s"])
+            want = tiled_bucket_matvec_reference(per_t, x, conj=cj["t"])
+            tiled_bucket_matvec_reference(per_s, x, want, conj=cj["s"])
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= PAIR_TOL[dtype] * scale, (op, type(b))
+        seen += 1
+    assert seen >= 2
+
+
+@pytest.mark.parametrize("op", ["N", "T", "C"])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("case", SYM_CASES)
+def test_matvec_pair_pass_matches_per_term_and_jax(sym_ops, monkeypatch, case, k, op):
+    """``matvec`` with pair plans (every mirror bucket in one launch) equals
+    ``matvec`` with per-term plans and the JAX package's ``matvec``; each
+    product counts its mirror buckets as fused, and none as split."""
+    Hj, H, dtype = _sym_case(sym_ops, case)
+    monkeypatch.setenv("HTOOL_TPU_PALLAS", "0")
+    x = _x_of(500, k, "complex" in dtype, 3)
+    yj = np.asarray(hj.matvec(Hj, jnp.asarray(x), op=op))
+    xt = torch.as_tensor(x).to(getattr(torch, dtype))
+    prepare_tiled_matvec(H)
+    n_mirror = sum(b.mirror for b in H.dense_buckets + H.lr_buckets)
+    assert n_mirror >= 2 and all(isinstance(b.pair, PairPlan) and b.plan_t is b.plan_s is None
+                                 for b in H.dense_buckets + H.lr_buckets if b.mirror)
+    before = profiling.counters()
+    y_pair = matvec(H, xt, op=op)
+    after = profiling.counters()
+    assert after.get("product_pairs_fused", 0) - before.get("product_pairs_fused", 0) == n_mirror
+    assert after.get("product_pairs_split", 0) == before.get("product_pairs_split", 0)
+    y_terms = matvec(_per_term(H), xt, op=op)
+    assert profiling.counters().get("product_pairs_split", 0) - after.get(
+        "product_pairs_split", 0) == n_mirror
+    scale = np.abs(yj).max()
+    np.testing.assert_allclose(y_pair.numpy(), y_terms.numpy(), rtol=0,
+                               atol=PAIR_TOL[dtype] * scale)
+    tol = 1e-12 if dtype in ("float64", "complex128") else 2e-6
+    np.testing.assert_allclose(y_pair.numpy(), yj, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("edge", ["panels", "nan_padding", "rank0", "wide_rank"])
+def test_pair_pass_edges(sym_ops, monkeypatch, edge):
+    """Dense blocks cut into panels; every padded entry NaN (nothing past
+    the live extents is read); blocks of rank 0 inside a bucket and a bucket
+    of rank 0; a bucket whose rank is too wide for the pass keeps its
+    per-term plans and counts as split."""
+    from htool_tpu_torch.testing import fill_padding
+
+    _, H, dtype = _sym_case(sym_ops, "S-float64")
+    x = torch.as_tensor(_x_of(500, 3, False, 9))
+    want = matvec(_per_term(H), x)
+    for b in H.dense_buckets + H.lr_buckets:
+        b.plan_t = b.plan_s = b.pair = None
+    if edge == "panels":
+        monkeypatch.setattr(pair_mod, "_TILE_BYTES", 4096)  # about 16 rows of 32 doubles
+        prepare_tiled_matvec(H)
+        dense = [b for b in H.dense_buckets if b.mirror]
+        assert dense
+        for b in dense:
+            items = b.pair.items.numpy()
+            assert 4 <= b.pair.tile_rows < int(np.max(b.t_sizes))
+            assert (items[:, 1] > 0).any() and (items[:, 2] - items[:, 1] <= 16).all()
+    elif edge == "nan_padding":
+        H = prepare_tiled_matvec(fill_padding(H, float("nan")))
+        assert all(isinstance(b.pair, PairPlan) for b in H.lr_buckets if b.mirror)
+    elif edge == "rank0":
+        b = next(b for b in H.lr_buckets if b.mirror)
+        b.ranks = np.asarray(b.ranks).copy()
+        b.ranks[: len(b.ranks) // 2] = 0  # half the blocks: no rank, no item
+        zero = torch.as_tensor(b.ranks, device=b.U.device) == 0
+        b.U = b.U.masked_fill(zero[:, None, None], 0.0)
+        want = matvec(_per_term(H), x)
+        empty = LowRankBucket(U=b.U[:, :, :0], V=b.V[:, :0], t_off=b.t_off, s_off=b.s_off,
+                              t_sizes=b.t_sizes, s_sizes=b.s_sizes,
+                              ranks=np.zeros_like(b.ranks), mirror=True)
+        H.lr_buckets.append(empty)
+        prepare_tiled_matvec(H)
+        assert b.pair.n_items == int((np.asarray(b.ranks) > 0).sum())
+        assert empty.plan_t is None and empty.plan_s is None and empty.pair is None
+    else:
+        b = next(b for b in H.lr_buckets if b.mirror)
+        monkeypatch.setattr(pair_mod, "_SMEM_MAX", 8 * 1024)
+        monkeypatch.setattr(pair_mod, "_SMEM_TWO", 8 * 1024)
+        prepare_tiled_matvec(H)
+        assert b.pair is None
+        assert isinstance(b.plan_t, SplitPlan) and isinstance(b.plan_s, SplitPlan)
+    before = profiling.counters()
+    got = matvec(H, x)
+    split = profiling.counters().get("product_pairs_split", 0) - before.get(
+        "product_pairs_split", 0)
+    assert split == (sum(b.mirror for b in H.lr_buckets + H.dense_buckets
+                         if b.pair is None) if edge == "wide_rank" else 0)
+    assert split > 0 or edge != "wide_rank"
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("layout", ["pair", "per_term_file"])
+def test_pair_plan_save_load_roundtrip(sym_ops, tmp_path, layout):
+    """``save_hmatrix``/``load_hmatrix`` keep a pair plan (its items over the
+    reloaded bucket's own tensors, one object as both sides' plan); a file
+    that holds per-term plans of mirror buckets loads as the same pair
+    plans."""
+    _, H, _ = _sym_case(sym_ops, "S-complex128")
+    (_per_term if layout == "per_term_file" else prepare_tiled_matvec)(H)
+    path = str(tmp_path / "h.npz")
+    ht.save_hmatrix(H, path)
+    with np.load(path) as z:
+        assert ("d1_tplan_pair_aux" in z) == (layout == "pair") or not H.dense_buckets[1].mirror
+    back = ht.load_hmatrix(path, device="cpu")
+    prepare_tiled_matvec(H)
+    for ba, bb in zip(H.dense_buckets + H.lr_buckets, back.dense_buckets + back.lr_buckets):
+        if not ba.mirror:
+            continue
+        pa, pb = ba.pair, bb.pair
+        assert isinstance(pb, PairPlan) and bb.plan_t is bb.plan_s is None
+        assert pb.data is (bb.data if isinstance(bb, DenseBucket) else bb.U)
+        for f in dataclasses.fields(pa):
+            va, vb = getattr(pa, f.name), getattr(pb, f.name)
+            if f.name not in ("data", "V"):
+                assert (torch.equal(va, vb) if isinstance(va, torch.Tensor) else va == vb), f.name
+    x = torch.as_tensor(_x_of(500, 2, True, 4))
+    for op in ("N", "T", "C"):
+        assert torch.equal(matvec(back, x, op=op), matvec(H, x, op=op))
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_pair_plan_of_a_wider_dtype(k):
+    """A float32 'S' operator whose rank-99 bucket of 1001 x 777 blocks
+    takes the pair pass in float32 (a cluster of 4 CTAs at KC = 8), but
+    whose float64 factors fit no layout: a float64 x gives no pair plan for
+    the wider dtype, the bucket's two terms run unplanned and count as
+    split, and the product is the dense one's."""
+    g = torch.Generator().manual_seed(11)
+    U, V = torch.randn(2, 1001, 99, generator=g), torch.randn(2, 99, 777, generator=g)
+    t_off, s_off = [1000, 1100], [0, 100]
+    b = LowRankBucket(U=U, V=V, t_off=torch.tensor(t_off), s_off=torch.tensor(s_off),
+                      t_sizes=np.full(2, 1001), s_sizes=np.full(2, 777),
+                      ranks=np.full(2, 99), mirror=True)
+    n = 2200
+    H = ht.HMatrix(shape=(n, n), dense_buckets=[], lr_buckets=[b], perm_t=torch.arange(n),
+                   perm_s=torch.arange(n), symmetry="S", UPLO="L")
+    prepare_tiled_matvec(H)
+    assert isinstance(b.pair, PairPlan) and b.pair.astype(torch.float64) is None
+    A = torch.zeros(n, n, dtype=torch.float64)
+    for i, (t, s) in enumerate(zip(t_off, s_off)):
+        A[t:t + 1001, s:s + 777] += U[i].double() @ V[i].double()
+    x = torch.as_tensor(np.random.RandomState(2).randn(n, k))
+    before = profiling.counters()
+    got = matvec(H, x)
+    after = profiling.counters()
+    assert after.get("product_pairs_split", 0) - before.get("product_pairs_split", 0) == 1
+    assert after.get("product_pairs_fused", 0) == before.get("product_pairs_fused", 0)
+    want = (A + A.T) @ x
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * float(want.abs().max()))
+    got32 = matvec(H, x.float())  # the pair pass, in float32
+    assert profiling.counters().get("product_pairs_fused", 0) - after.get(
+        "product_pairs_fused", 0) == 1
+    np.testing.assert_allclose(got32.numpy(), want.numpy(), rtol=0,
+                               atol=2e-5 * float(want.abs().max()))

@@ -16,6 +16,8 @@ import htool_tpu as hj
 import htool_tpu.hmatrix.output as oj
 import htool_tpu.testing as kj
 import htool_tpu_torch as ht
+from htool_tpu_torch.hmatrix.hmatrix import DenseBucket
+from htool_tpu_torch.ops.pair_matvec import PairPlan
 from htool_tpu_torch.ops.tiled_matvec import SplitPlan
 import htool_tpu_torch.hmatrix.output as ot
 import htool_tpu_torch.testing as kt
@@ -45,7 +47,7 @@ def _same_hmatrix(a, b):
     for ba, bb in zip(a.dense_buckets + a.lr_buckets, b.dense_buckets + b.lr_buckets):
         for f in dataclasses.fields(ba):
             va, vb = getattr(ba, f.name), getattr(bb, f.name)
-            if f.name.startswith("plan_"):
+            if f.name.startswith("plan_") or f.name == "pair":
                 assert (va is None) == (vb is None)
             elif isinstance(va, torch.Tensor):
                 assert va.dtype == vb.dtype and torch.equal(va, vb), f.name
@@ -68,14 +70,19 @@ def test_save_load_roundtrip(pairs, tmp_path, sym, plans):
     H2 = ht.load_hmatrix(path)
     _same_hmatrix(H, H2)
     for b, b2 in zip(H.dense_buckets + H.lr_buckets, H2.dense_buckets + H2.lr_buckets):
-        for side in ("t", "s"):
-            p, p2 = getattr(b, f"plan_{side}"), getattr(b2, f"plan_{side}")
-            if plans:
+        for field in ("plan_t", "plan_s", "pair"):
+            p, p2 = getattr(b, field), getattr(b2, field)
+            if plans and p is None:  # a mirror bucket's pair plan, and no per-term plans
+                assert p2 is None
+            elif plans:
                 assert type(p2) is type(p)
                 if isinstance(p, SplitPlan):  # its two stages, over the bucket's own U and V
                     assert p2.r_pad == p.r_pad
                     assert {id(p2.stage_a.data), id(p2.stage_b.data)} == {id(b2.U), id(b2.V)}
                     stages = list(zip(p, p2))
+                elif isinstance(p, PairPlan):  # over the bucket's own blocks
+                    assert p2.data is (b2.data if isinstance(b2, DenseBucket) else b2.U)
+                    stages = [(p, p2)]
                 else:
                     assert p2.data is b2.data
                     stages = [(p, p2)]

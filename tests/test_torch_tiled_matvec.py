@@ -21,6 +21,7 @@ from htool_tpu.testing import create_sphere, laplace_kernel_symmetric
 from htool_tpu_torch.convert import hmatrix_from_numpy
 from htool_tpu_torch.hmatrix.hmatrix import DenseBucket, LowRankBucket
 from htool_tpu_torch.hmatrix.linalg import _pad_in_of, matvec, matvec_user, prepare_tiled_matvec
+from htool_tpu_torch.ops.pair_matvec import pair_bucket_matvec
 from htool_tpu_torch.ops.tiled_matvec import (
     SplitPlan,
     build_tile_plan,
@@ -223,7 +224,7 @@ def test_matvec_parity_carried_hmatrix(pair64, pair64_sym, op, k, planned, sym):
     if sym == "S":
         assert any(b.mirror for b in _buckets(Ht))
     for b in _buckets(Ht):
-        b.plan_t = b.plan_s = None
+        b.plan_t = b.plan_s = b.pair = None
     if planned:
         prepare_tiled_matvec(Ht, tile_rows=128)
     rng = np.random.RandomState(7)
@@ -242,8 +243,9 @@ def test_matvec_parity_carried_hmatrix(pair64, pair64_sym, op, k, planned, sym):
 @pytest.mark.parametrize("sym", ["N", "S"])
 def test_matvec_wider_dtype_runs_planned_terms(pair32, pair64_sym, monkeypatch, sym):
     """A float64 input against float32 blocks with plans still sends every
-    bucket term through the kernel's wrapper, on blocks cast to float64,
-    and gives the float64 gather path's product."""
+    bucket term through the kernels' wrappers (a mirror bucket's two through
+    the pair wrapper, in one call), on blocks cast to float64, and gives the
+    float64 gather path's product."""
     from htool_tpu_torch.hmatrix import linalg
 
     if sym == "N":
@@ -257,7 +259,7 @@ def test_matvec_wider_dtype_runs_planned_terms(pair32, pair64_sym, monkeypatch, 
             lr_buckets=[dataclasses.replace(b, U=b.U.float(), V=b.V.float())
                         for b in H64.lr_buckets])
     for b in _buckets(Ht):
-        b.plan_t = b.plan_s = None
+        b.plan_t = b.plan_s = b.pair = None
     x = torch.as_tensor(np.random.RandomState(9).randn(N, 2))
     want = matvec(Ht, x)  # no plans: the gather path, in float64
     prepare_tiled_matvec(Ht, tile_rows=128)
@@ -267,15 +269,20 @@ def test_matvec_wider_dtype_runs_planned_terms(pair32, pair64_sym, monkeypatch, 
         seen.append((plan.dtype, x_pad.dtype))
         return tiled_bucket_matvec(plan, x_pad, out=out, conj=conj)
 
+    def spy_pair(plan, x_pad, out=None, conj_t=False, conj_s=False):
+        seen.append((plan.dtype, x_pad.dtype))
+        return pair_bucket_matvec(plan, x_pad, out=out, conj_t=conj_t, conj_s=conj_s)
+
     monkeypatch.setattr(linalg, "tiled_bucket_matvec", spy)
+    monkeypatch.setattr(linalg, "pair_bucket_matvec", spy_pair)
     try:
         got = matvec(Ht, x)
     finally:
         for b in _buckets(Ht):
-            b.plan_t = b.plan_s = None
+            b.plan_t = b.plan_s = b.pair = None
     terms = sum(1 + bool(b.mirror) for b in _buckets(Ht))
     assert (terms > len(_buckets(Ht))) == (sym == "S")
-    assert seen == [(torch.float64, torch.float64)] * terms
+    assert seen == [(torch.float64, torch.float64)] * len(_buckets(Ht))
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
                                atol=1e-12 * float(want.abs().max()))
@@ -294,7 +301,7 @@ def test_matvec_rejects_stale_plan(pair64):
             matvec(Ht, torch.zeros(N, dtype=torch.float64))
     finally:
         for bk in _buckets(Ht):
-            bk.plan_t = bk.plan_s = None
+            bk.plan_t = bk.plan_s = bk.pair = None
 
 
 @pytest.mark.parametrize("sym", ["N", "S"])

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 import htool_tpu_torch as ht
 import torch_parity  # noqa: F401  (asks the port for the CPU)
 from htool_tpu_torch.hmatrix.linalg import matvec, prepare_tiled_matvec
+from htool_tpu_torch.ops.pair_matvec import PairPlan
 from htool_tpu_torch.ops.tiled_matvec import tiled_bucket_matvec
 from htool_tpu_torch.solvers import DDMSolver
 from htool_tpu_torch.solvers.krylov import cg
@@ -156,9 +157,11 @@ def test_cg_syncs(problem, maxiter):
 def test_root_counts_launches_and_plain_calls(problem, monkeypatch):
     """A root span holds the change of the wrappers' CUDA launches and of
     every process counter across it: on the CPU each bucket term of each
-    product is one plain call."""
+    product is one plain call, a mirror bucket's two terms one call where
+    they run as a pair."""
     H, solver = problem
-    terms = sum(1 + int(b.mirror) for b in H.dense_buckets + H.lr_buckets)
+    pairs = sum(isinstance(b.pair, PairPlan) for b in H.dense_buckets + H.lr_buckets)
+    terms = sum(1 + int(b.mirror) for b in H.dense_buckets + H.lr_buckets) - pairs
     profiling.clear()
     products = matvec.products
     with torch.profiler.profile():
@@ -170,6 +173,7 @@ def test_root_counts_launches_and_plain_calls(problem, monkeypatch):
     assert products == infos["Nb_it"] + 1  # the first residual's, then one a step
     solve, other = [r for r in profiling.spans() if r["parent"] is None]
     assert solve["counters"]["plain_calls"] == terms * products
+    assert solve["counters"].get("product_pairs_fused", 0) == pairs * products
     assert solve["counters"]["launches"] == 0
     assert other["counters"]["launches"] == 7 and other["counters"]["plain_calls"] == 0
     profiling.clear()
