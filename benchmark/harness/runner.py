@@ -45,14 +45,16 @@ def power_limit_w(device: torch.device):
 
 
 def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device: torch.device,
-        t_start: float, side=None, units=None) -> dict:
+        t_start: float, side=None, units=None, ranks=None) -> dict:
     """The result line's object.  ``side``: the system under test, built
     from the cell's configuration and mix; the configuration's program
     (``programs/<program>.py``) unless ``calibrate.py`` puts the control in
     its place.  ``units``: run that many units in the window instead of
-    ``seconds`` of them (``calibrate.py``'s readings).  Raises
-    ``ForbiddenImport`` where JAX or the JAX package is loaded once the
-    window has closed."""
+    ``seconds`` of them (``calibrate.py``'s readings).  ``ranks``: this
+    rank's ``harness.ranks.Ranks`` in a cell on several cards, where every
+    rank runs this and rank 0 alone returns the result (the others None).
+    Raises ``ForbiddenImport`` where JAX or the JAX package is loaded once
+    the window has closed."""
     cell = spec.cell(cell_name)
     cfg = spec.config(cell["config"])
     mix = spec.traffic(cell["traffic"])
@@ -71,6 +73,8 @@ def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device: to
         loop.unit(WARMUP, i)
     gc.collect()
     sync()
+    if ranks is not None:
+        ranks.barrier()
     marks.append(("warmup", time.perf_counter()))
     print("setup " + " ".join(f"{b[0]}={b[1] - a[1]:.3f}s" for a, b in zip(marks, marks[1:])),
           file=sys.stderr)
@@ -86,7 +90,8 @@ def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device: to
         u1 = time.perf_counter()
         unit.update(seconds=u1 - u0, spans=spans.current)
         rec.units.append(unit)
-        if (len(rec.units) >= units) if units else (u1 >= t_end):
+        done = (len(rec.units) >= units) if units else (u1 >= t_end)
+        if (done if ranks is None else ranks.window_ends(done)):
             break
     rec.window_s = u1 - t0
     spans.current = None
@@ -100,6 +105,8 @@ def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device: to
                   + " ".join(f"{k}={v:.4f}" for k, v in u["spans"].items()), file=sys.stderr)
     if device.type == "cuda":
         rec.peak_bytes = int(torch.cuda.max_memory_allocated(device))
+    if ranks is not None:
+        rec.peak_bytes = ranks.largest(rec.peak_bytes)
     check_in = loop.collect()
 
     if trace:
@@ -112,7 +119,7 @@ def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device: to
                                                                    X.shape[1])
             del problem, X
         spans.annotate = True
-        rec.trace = devtrace.profile(
+        rec.trace = (devtrace.profile if ranks is None else ranks.profile)(
             lambda: [loop.unit(TRACE, i) for i in range(int(mix["trace_units"]))], sync)
         spans.annotate = False
     power = power_limit_w(device)
@@ -121,6 +128,10 @@ def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device: to
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    if ranks is not None:
+        ranks.barrier()  # every rank has released its problem
+        if ranks.rank:
+            return None
 
     t_check = time.perf_counter()
     checks = check.compare(check_in, kernel, cfg["limits"], rec.units)
@@ -145,7 +156,7 @@ def run(spec, cell_name: str, seed: int, seconds: float, trace: bool, device: to
         "device": {
             "platform": "gpu" if device.type == "cuda" else device.type,
             "kind": rec.device_kind,
-            "count": 1,
+            "count": 1 if ranks is None else ranks.world,
             "memory_peak_bytes": rec.peak_bytes,
             "power_limit_w": power,
         },

@@ -1,4 +1,4 @@
-"""The benchmark of htool_tpu_torch: one run of one cell on one GPU.
+"""The benchmark of htool_tpu_torch: one run of one cell on its GPUs.
 
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -7,7 +7,9 @@ object (``correct``, ``attempted``, ``failed``, ``metrics``, ``device``, with
 ``--trace 1`` also ``breakdown``, and last ``checks``); the last lines of
 standard error are the numbers compared, each beside its limit.  The run
 fails, and prints no result, without a CUDA device, without the port in the
-checkout, or where JAX or the JAX package is loaded.  See README.md.
+checkout, or where JAX or the JAX package is loaded.  A cell on W > 1
+cards runs as W processes, one rank a card (``harness/ranks.py``).  See
+README.md.
 """
 
 import time
@@ -31,6 +33,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
 
     os.environ["HTOOL_TPU_TORCH_KERNEL_DIR"] = os.path.join(BUILD, "kernels")
@@ -58,13 +61,25 @@ def main(argv=None) -> int:
               f"not from the checkout {ROOT}", file=sys.stderr)
         return 4
 
+    chips = int(cell["chips"])
+    if chips > 1:
+        from harness import ranks
+
+        if not ranks.in_rank():
+            return ranks.parent([sys.executable, os.path.abspath(__file__), *argv], chips,
+                                ranks.time_limit(args.seconds), T_START, "cuda")
     try:
-        result = runner.run(spec, args.workload, args.seed, args.seconds, bool(args.trace),
-                            torch.device("cuda", 0), T_START)
+        if chips > 1:
+            result = ranks.run_rank(spec, args.workload, args.seed, args.seconds,
+                                    bool(args.trace), "cuda")
+        else:
+            result = runner.run(spec, args.workload, args.seed, args.seconds, bool(args.trace),
+                                torch.device("cuda", 0), T_START)
     except runner.ForbiddenImport as e:
         print(f"{args.workload}: {e}", file=sys.stderr)
         return 5
-    runner.emit(result)
+    if result is not None:
+        runner.emit(result)
     return 0
 
 

@@ -64,6 +64,23 @@ def add_tiny_cells(root: Path) -> dict:
     return names
 
 
+def add_cell(root: Path, cfg: dict, cell: str, chips: int, like: str = "real_solve_stream") -> None:
+    """The configuration ``cfg`` (its ``name``) and a cell ``cell`` of it under
+    ``like``'s traffic, on ``chips`` cards, added as files and entries to the
+    copy at ``root``; the cell reports the metrics ``like`` reports."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    path = f"{BENCH.name}/configs/{cfg['name']}.json"
+    (root / path).write_text(json.dumps(cfg))
+    bench["configs"].append(dict(bench["configs"][0], name=cfg["name"], file=path))
+    traffic = next(w["traffic"] for w in bench["workloads"] if w["name"] == like)
+    bench["workloads"].append({"name": cell, "config": cfg["name"], "traffic": traffic,
+                               "chips": chips, "why": "a test"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if like in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+
+
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory):
     """(root, {cell: tiny cell}) of a copy of the benchmark with tiny cells."""

@@ -15,7 +15,7 @@ from conftest import ROOT
 CELL = "complex_block8_stream"
 READERS = ["krylov_lstsq_us.solve", "krylov_orth_us.solve"]
 # a device metric reads nothing on the CPU, and is left out of the line
-DEVICE_ONLY = {"peak_mem_gb", "device_idle.solve", "product_roofline.solve"}
+DEVICE_ONLY = {"peak_mem_gb", "device_idle.block", "product_roofline.block"}
 
 
 @pytest.mark.parametrize("trace", [False, True])
@@ -30,7 +30,7 @@ def test_sound_run(tiny_root, trace):
         assert m["value"] > 0
     if trace:
         assert set(READERS) <= set(r["metrics"])
-        assert r["metrics"]["iterations.solve"]["value"] >= 1
+        assert r["metrics"]["iterations.block"]["value"] >= 1
 
 
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_left_out", "answer_altered"])

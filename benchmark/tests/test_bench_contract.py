@@ -39,10 +39,12 @@ def test_benchmark_json_shape():
         assert c["file"].startswith("benchmark/") and (ROOT / c["file"]).is_file()
         assert any(w["config"] == c["name"] for w in b["workloads"])
     for w in b["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200 and "\n" not in w["why"]
         assert (BENCH / "traffic" / f"{w['traffic']}.json").is_file()
     assert len({(w["config"], w["traffic"]) for w in b["workloads"]}) == len(b["workloads"])
+    # four cards only where what a cell measures exists across cards: a quarter of the cells
+    assert sum(w["chips"] == 4 for w in b["workloads"]) <= max(1, len(b["workloads"]) // 4)
     for m in b["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
         assert m["source"] in ("host_clock", "device_trace") and 0.01 <= m["bound"] <= 0.25

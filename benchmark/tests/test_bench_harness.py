@@ -32,9 +32,10 @@ def test_sound_run(tiny_root, cell, trace):
     assert set(r["checks"]) == {"residual", "product_err", "unconverged"}
     spec = Spec(root)
     want = {m["name"] for m in spec.metrics(tiny[cell], trace)}
-    # a device metric reads nothing on the CPU, and is left out of the line
+    # a device metric reads nothing on the CPU, and is left out of the line; so
+    # is the count of CG steps replayed from CUDA graphs, which the CPU never captures
     device_only = {"peak_mem_gb", "device_idle.problem", "device_idle.solve",
-                   "product_roofline.solve"}
+                   "product_roofline.solve", "graph_steps.solve"}
     assert set(r["metrics"]) == want - device_only
     for m in r["metrics"].values():
         assert m["value"] > 0

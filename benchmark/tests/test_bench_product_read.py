@@ -82,9 +82,14 @@ def test_the_program_counts_planned_terms_and_products():
             matvec(H, x)
     (rec,) = [r for r in profiling.spans() if r["name"] == "htool.ddm.solve"]
     assert rec["counters"]["products"] == 2
+    # a mirror bucket with a pair plan streams both its terms in one pass and
+    # keeps no per-term plans
     per_product = sum(p.streamed_bytes() for b in H.dense_buckets + H.lr_buckets
-                      for plan in (b.plan_t, b.plan_s)[: 1 + b.mirror]
+                      for plan in (b.plan_t, b.plan_s)[: 1 + b.mirror] if plan is not None
                       for p in (plan if isinstance(plan, SplitPlan) else [plan]))
+    per_product += sum(b.pair.streamed_bytes() for b in H.dense_buckets + H.lr_buckets
+                       if b.pair is not None)
+    assert any(b.pair is not None for b in H.dense_buckets + H.lr_buckets)
     assert rec["counters"]["product_read_bytes"] == 2 * per_product > 0
     profiling.clear()
 
@@ -94,5 +99,7 @@ def test_entry():
         "per_layer"]}
     assert per_layer["product_read_gb.solve"] == dict(
         name="product_read_gb.solve", unit="GB", better="lower", source="program_counter",
-        layer="product and kernels", moves="solve_ms",
-        workloads=["real_solve_stream", "complex_block8_stream"])
+        layer="product and kernels", moves="solve_ms", workloads=["real_solve_stream"])
+    assert per_layer["product_read_gb.block"] == dict(
+        per_layer["product_read_gb.solve"], name="product_read_gb.block", moves="block_solve_ms",
+        workloads=["complex_block8_stream"])

@@ -12,6 +12,8 @@ from conftest import ROOT
 
 STREAM = ["krylov_step_host_us.solve", "syncs.solve", "schwarz_apply_us.solve",
           "product_launches.solve"]
+# the same readers in the block-solve cell, which reports ``block_solve_ms``
+BLOCK = [name.replace(".solve", ".block") for name in STREAM]
 PROBLEM = ["aca_ms.problem", "overlap_ms.problem", "schwarz_local_ms.problem"]
 
 
@@ -55,6 +57,7 @@ WANT = {
     "overlap_ms.problem": 350.0,
     "schwarz_local_ms.problem": 75.0,
 }
+WANT.update({b: WANT[s] for s, b in zip(STREAM, BLOCK)})
 
 
 @pytest.fixture
@@ -72,9 +75,9 @@ def reader(name):
     return Spec(ROOT).reader(name)
 
 
-@pytest.mark.parametrize("name", STREAM + PROBLEM)
+@pytest.mark.parametrize("name", STREAM + BLOCK + PROBLEM)
 def test_reader_on_a_synthetic_snapshot(name, snapshot):
-    kind, other = ("solve_stream", "new_problem") if name in STREAM else (
+    kind, other = ("solve_stream", "new_problem") if name not in PROBLEM else (
         "new_problem", "solve_stream")
     snapshot(SOLVES if kind == "solve_stream" else PROBLEMS)
     read = reader(name)
@@ -85,14 +88,14 @@ def test_reader_on_a_synthetic_snapshot(name, snapshot):
     assert read(Record(kind=kind, device_kind="NVIDIA H100 80GB HBM3")) is None
 
 
-@pytest.mark.parametrize("name", STREAM + PROBLEM)
+@pytest.mark.parametrize("name", STREAM + BLOCK + PROBLEM)
 def test_reader_without_the_recorder(name, monkeypatch):
     """A program whose profiling module has no ``spans`` (the port before
     its recorder): nothing to read, and no exception."""
     from htool_tpu_torch.utils import profiling
 
     monkeypatch.delattr(profiling, "spans")
-    kind = "solve_stream" if name in STREAM else "new_problem"
+    kind = "new_problem" if name in PROBLEM else "solve_stream"
     assert reader(name)(Record(kind=kind, device_kind="NVIDIA H100 80GB HBM3")) is None
 
 
@@ -107,9 +110,10 @@ def test_entries_list_their_cell():
 
     per_layer = {m["name"]: m for m in json.loads((ROOT / "BENCHMARK.json").read_text())[
         "per_layer"]}
-    for names, cell, moves in ((STREAM, "real_solve_stream", "solve_ms"),
-                               (PROBLEM, "real_new_problem", "problem_s")):
+    for names, cells, moves in ((STREAM, ["real_solve_stream"], "solve_ms"),
+                                (BLOCK, ["complex_block8_stream"], "block_solve_ms"),
+                                (PROBLEM, ["real_new_problem"], "problem_s")):
         for name in names:
             m = per_layer[name]
-            assert m["workloads"] == [cell] and m["moves"] == moves
+            assert m["workloads"] == cells and m["moves"] == moves
             assert m["source"] in ("program_span", "program_counter")
